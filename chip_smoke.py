@@ -5,26 +5,43 @@
 
 Needs one CUDA device, nvcc (the kernels are built from
 megapath_nano_tpu_torch/kernels/csrc at first use) and g++ with zlib (the
-native index builder, cpp/). Imports nothing of JAX. Phases, each of which
-raises on failure:
+native host layer, built from cpp/ at first use). Imports nothing of JAX and
+nothing of the megapath_nano_tpu package. Phases, each of which raises on
+failure:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, the nvcc build time.
+   versions, the nvcc and g++ build times.
 2. Kernels against their plain PyTorch versions on the card, bit-equal:
-   banded_sw_full at band 128 on 8192 pairs of 1 kb (the map path's shape),
-   at band 256 on 1024 pairs of 4 kb, and on edge cases; chain_and_extents
-   on 16384 groups x 32 anchors and on groups that read every entry of the
-   gap-cost table. Times from CUDA events after a warm-up.
-3. The map path at a real size: 32 random genomes of 4 Mbp (128 Mbp,
+   banded_sw_full at band 128 on 8192 pairs of 1 kb (the PAF path's shape),
+   at band 256 on 1024 pairs of 4 kb, and on edge cases; banded_sw_scores
+   at 1024 x 1 kb band 128 (the CIGAR path's shape), 1024 x 4 kb band 256,
+   128 x 16 kb band 512 and on edge cases; chain_and_extents on 16384
+   groups x 32 anchors, 4096 x 256, and on groups that read every entry of
+   the gap-cost table. Times from CUDA events after a warm-up; beside each,
+   the least time the card could take for the same inputs (see `Bound`).
+3. The PAF-mode map at a real size: 32 random genomes of 4 Mbp (128 Mbp,
    k=15 w=10 index), 32768 simulated 1 kb reads at 6% error (sub:ins:del
    2:1:1, half reverse-complemented), mapped with
    map_reads(slice_size=4096, emit_cigars=False) after a warm-up on the
    same reads. At least 90% of reads must map and 95% of those land on
-   their true genome and strand within 150 bases; both kernels must have
-   been launched. Then 2048 reads of 4 kb, so that band 256 runs on the
-   path.
+   their true genome and strand within 150 bases; sw_full and chain must
+   have been launched. Then 2048 reads of 4 kb, so that band 256 runs on
+   the path.
 4. The same aligner on the card and on the CPU (plain versions) on 512
-   reads: all 18 AlignList fields equal.
+   reads in PAF mode: all 18 AlignList fields equal.
+5. The CIGAR-mode map on the same index: 8192 of those 1 kb reads with
+   map_reads(slice_size=4096, emit_cigars=True) (two worker threads), the
+   same accuracy bars, every CIGAR consistent with its record, a SAM file
+   written; chain and sw_scores must have been launched. The PAF-mode map
+   with the fused dispatch off (the same host-chained path, fields from
+   the full-stats kernel) equals it in 11 fields; the fused PAF map, whose
+   device seeding caps a group at 32 anchors, may differ in at most 1% of
+   rows. One slice again with a timer on each stage, and the native
+   traceback's score held to the score-only kernel's on every pair it
+   traced. 512 reads of 4 kb (band 256); 8 reads of 40 kb (windows of
+   65536, band 512: beyond the full-stats kernel's limit).
+6. Card against CPU on 256 reads in CIGAR mode: 18 fields and the whole
+   cigar_map equal.
 
 The last line of output is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record.
@@ -36,16 +53,49 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SW_SOURCE = "megapath_nano_tpu_torch/kernels/csrc/sw_full.cu"
-CHAIN_SOURCE = "megapath_nano_tpu_torch/kernels/csrc/chain.cu"
-SW_REPLACES = "megapath_nano_tpu/kernels/sw.py:276"
-CHAIN_REPLACES = "megapath_nano_tpu/kernels/chain.py:29"
+CSRC = "megapath_nano_tpu_torch/kernels/csrc/"
+# name -> (source, file:line of the TPU kernel it replaces)
+KERNELS = {
+    "banded_sw_full": (CSRC + "sw_full.cu",
+                       "megapath_nano_tpu/kernels/sw.py:276"),
+    "chain_and_extents": (CSRC + "chain.cu",
+                          "megapath_nano_tpu/kernels/chain.py:29"),
+    "banded_sw_scores": (CSRC + "sw_scores.cu",
+                         "megapath_nano_tpu/kernels/sw.py:423"),
+}
 SW_PARAMS = dict(match=2, mismatch=4, gap_open=4, gap_extend=2)
+PAF_FIELDS = ("read_id", "read_from", "read_to", "strand", "sequence_id",
+              "sequence_from", "sequence_to", "match", "edit_dist",
+              "alignment_score", "mapq")
+
+# Bound: the least time an H100 SXM could take for a call, the larger of
+#   bytes / 3.35e12 B/s   (each input read once, each output written once)
+#   ops / 16.75e12 op/s   (int32 operations outside the tensor cores: a
+#       Hopper SM has 64 INT32 lanes beside 128 FP32 lanes, and the
+#       published 67 TFLOP/s of float32 counts a fused multiply-add on each
+#       FP32 lane as two, so the int32 rate is 67e12 / 4).
+# Operations are counted from the plain version's row step, one per
+# elementwise integer op on a cell, with the F chain's scan at the one
+# step per cell that a sequential scan needs (the plain versions spend
+# log2(band)); cells are what these inputs need: rows stop at each pair's
+# own read length.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# banded_sw_scores_torch: ambig 3, sub 3, dead 1, diagonal 1, E 3, Hnod 2,
+# g 3, scan 2, f 2, H 3, active 1 + 2 selects, E clamp 1, best 2 + 2 selects
+SW_SCORES_OPS_PER_CELL = 31
+# banded_sw_full_torch: the same plus the companions P and B through the
+# diagonal, E, the tuple scan (compare + 3 selects) and the H selection
+SW_FULL_OPS_PER_CELL = 71
+# chain_and_extents_torch, per (anchor, predecessor) pair: dq, dt, dd 4,
+# mask 10, alpha 2, cost 3, candidate 3, max 1, oldest-wins argmax 3
+CHAIN_OPS_PER_PAIR = 26
 
 
 def log(*args):
@@ -54,7 +104,7 @@ def log(*args):
 
 def mutate_fast(rng, src, err):
     """ONT-style errors at rate err, sub:ins:del = 2:1:1 (the same per-base
-    rule as megapath_nano_tpu.utils.dna.mutate, vectorized)."""
+    rule as megapath_nano_tpu_torch.utils.dna.mutate, vectorized)."""
     d, i, s = err / 4, err / 4, err / 2
     r = rng.random(len(src))
     is_ins = (r >= d) & (r < d + i)
@@ -72,7 +122,7 @@ def simulate_reads(rng, genomes, n, length, err):
     """n reads of `length` from random genomes/positions; half are
     reverse-complemented. Returns (reads, truth (n, 3): genome, start,
     strand)."""
-    from megapath_nano_tpu.utils.dna import revcomp
+    from megapath_nano_tpu_torch.utils.dna import revcomp
 
     reads, truth = [], np.zeros((n, 3), np.int64)
     for j in range(n):
@@ -96,6 +146,42 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by) for a call that must move n_bytes and do n_ops
+    int32 operations."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / INT32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sw_bound(arrays, band, ops_per_cell, out_cols):
+    """Bound of one banded extension call on (reads, rlens, refs, tlens):
+    int8 planes and int32 lengths in, out_cols int32 per pair out; cells =
+    sum over pairs of read length x band."""
+    ra, rl, ta, tl = arrays
+    n_bytes = ra.size + ta.size + 4 * (rl.size + tl.size) \
+        + 4 * out_cols * len(rl)
+    cells = int(np.minimum(rl, ra.shape[1]).astype(np.int64).sum()) * band
+    return bound(n_bytes, cells * ops_per_cell)
+
+
+def chain_bound(arrays, window=32, bandwidth=500):
+    """Bound of one chain call on int32 (q, t, cnt): pairs = for every live
+    anchor i of a group, its min(i, window) predecessors."""
+    q, t, cnt = arrays
+    n_bytes = 4 * (q.size + t.size + cnt.size) + 4 * (bandwidth + 1) \
+        + 24 * len(cnt)
+    c = np.minimum(cnt, q.shape[1]).astype(np.int64)
+    w = np.minimum(c, window)
+    pairs = int((w * (w - 1) // 2 + (c - w) * window).sum())
+    return bound(n_bytes, pairs * CHAIN_OPS_PER_PAIR)
+
+
+def kernel_record(err, ms, plain_ms, bnd):
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
 
 def require_equal(name, got, ref):
@@ -140,6 +226,14 @@ def phase_device():
     log(f"nvcc build: {time.perf_counter() - t0:.2f} s "
         f"({'cached' if cached else 'compiled'}) -> "
         f"{os.path.relpath(build.library_path(), ROOT)}")
+    from megapath_nano_tpu_torch.native import lib as native
+
+    t0 = time.perf_counter()
+    cached = os.path.exists(native.library_path())
+    native.load_native_lib()
+    log(f"g++ build of cpp/: {time.perf_counter() - t0:.2f} s "
+        f"({'cached' if cached else 'compiled'}) -> "
+        f"{os.path.relpath(native.library_path(), ROOT)}")
     with open(build.library_path()[:-3] + ".log") as f:
         for line in f:
             if "registers" in line or "spill" in line:
@@ -170,7 +264,12 @@ def sw_edge_batch(rng):
              (np.full(90, 4, np.int8), t[:120]),
              (rng.integers(0, 4, 173).astype(np.int8), t[:60]),
              (np.zeros(70, np.int8), np.ones(80, np.int8)),
-             (t[:50].copy(), np.full(64, 4, np.int8))]
+             (t[:50].copy(), np.full(64, 4, np.int8)),
+             # a deletion right at the ref's last bases, then the read runs
+             # on past the ref: E next to and on the dead slots is carried
+             (np.concatenate([t[10:100], t[106:120],
+                              rng.integers(0, 4, 60).astype(np.int8)]),
+              t[:120])]
     q_max = max(len(r) for r, _ in pairs)
     t_max = max(len(x) for _, x in pairs)
     ra = np.full((len(pairs), q_max), 4, np.int8)
@@ -183,7 +282,9 @@ def sw_edge_batch(rng):
     return ra, rl, ta, tl
 
 
-def check_sw(name, arrays, band, plain_iters=1, kernel_iters=5):
+def check_sw(kind, name, arrays, band, plain_iters=1, kernel_iters=5):
+    """Hold one banded extension wrapper (kind "full" or "scores") to its
+    plain version on the card and time both."""
     import torch
 
     from megapath_nano_tpu_torch.kernels import sw
@@ -191,20 +292,33 @@ def check_sw(name, arrays, band, plain_iters=1, kernel_iters=5):
     dev = torch.device("cuda")
     ra, rl, ta, tl = (torch.from_numpy(x).to(dev) for x in arrays)
     reads, rlens, refs_p = sw._prepare(ra, rl, ta, tl, band)
-    kern = sw.banded_sw_full(ra, rl, ta, tl, band=band, **SW_PARAMS)
-    plain = sw.banded_sw_full_torch(reads, rlens, refs_p, band=band,
-                                    **SW_PARAMS)
+    if kind == "full":
+        def kernel():
+            return sw.banded_sw_full(ra, rl, ta, tl, band=band, **SW_PARAMS)
+
+        def plain():
+            return sw.banded_sw_full_torch(reads, rlens, refs_p, band=band,
+                                           **SW_PARAMS)
+        bnd = sw_bound(arrays, band, SW_FULL_OPS_PER_CELL, 7)
+    else:
+        def kernel():
+            return torch.stack(sw.banded_sw_scores(ra, rl, ta, tl, band=band,
+                                                   **SW_PARAMS))
+
+        def plain():
+            return sw.banded_sw_scores_torch(reads, rlens, refs_p, band=band,
+                                             **SW_PARAMS)
+        bnd = sw_bound(arrays, band, SW_SCORES_OPS_PER_CELL, 3)
+    kern, ref = kernel(), plain()
     torch.cuda.synchronize()
-    err = require_equal(name, kern, plain)
-    ms = cuda_ms(lambda: sw.banded_sw_full(ra, rl, ta, tl, band=band,
-                                           **SW_PARAMS), kernel_iters)
-    plain_ms = cuda_ms(lambda: sw.banded_sw_full_torch(
-        reads, rlens, refs_p, band=band, **SW_PARAMS), plain_iters)
+    err = require_equal(name, kern, ref)
+    ms = cuda_ms(kernel, kernel_iters)
+    plain_ms = cuda_ms(plain, plain_iters)
     n, q = arrays[0].shape
-    log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"({n} pairs x {q} rows, band {band}; "
+    log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bnd[0]:.4f} ms by {bnd[1]} ({n} pairs x {q} rows, band {band}; "
         f"{n * q * band / ms / 1e6:.2f} Gcell/s kernel)")
-    return err, ms, plain_ms
+    return kernel_record(err, ms, plain_ms, bnd)
 
 
 def chain_groups(rng, n, a=32):
@@ -257,24 +371,46 @@ def check_chain(name, arrays, kernel_iters=20, plain_iters=2):
     plain_ms = cuda_ms(lambda: chain.chain_and_extents_torch(
         q, t, cnt, beta, window=32, k=15, max_dist=5000, bandwidth=500),
         plain_iters)
-    log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+    bnd = chain_bound(arrays)
+    log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bnd[0]:.4f} ms by {bnd[1]} "
         f"({arrays[0].shape[0]} groups x {arrays[0].shape[1]} anchors)")
-    return err, ms, plain_ms
+    return kernel_record(err, ms, plain_ms, bnd)
 
 
 def phase_kernels(rng):
+    """Returns {kernel name: record at the shape its main path gives it};
+    the record's max_abs_err covers every shape checked."""
     log("phase 2: kernels vs plain versions on the card")
-    sw_err, sw_ms, sw_plain_ms = check_sw(
-        "sw_full band 128, 8192 x 1 kb", sw_batch(rng, 8192, 1024, 1280,
-                                                   0.06), 128)
-    e2, _, _ = check_sw("sw_full band 256, 1024 x 4 kb",
-                        sw_batch(rng, 1024, 4096, 4352, 0.06), 256)
-    e3, _, _ = check_sw("sw_full edge cases", sw_edge_batch(rng), 128)
-    ch_err, ch_ms, ch_plain_ms = check_chain(
-        "chain 16384 x 32", chain_groups(rng, 16384))
-    e4, _, _ = check_chain("chain gap-cost table (dd 0..500)", beta_groups())
-    return {"sw": (max(sw_err, e2, e3), sw_ms, sw_plain_ms),
-            "chain": (max(ch_err, e4), ch_ms, ch_plain_ms)}
+    full = check_sw("full", "sw_full band 128, 8192 x 1 kb",
+                    sw_batch(rng, 8192, 1024, 1280, 0.06), 128)
+    scores = check_sw("scores", "sw_scores band 128, 1024 x 1 kb",
+                      sw_batch(rng, 1024, 1024, 2048, 0.06), 128)
+    edge = sw_edge_batch(rng)
+    others = {
+        "banded_sw_full": [
+            check_sw("full", "sw_full band 256, 1024 x 4 kb",
+                     sw_batch(rng, 1024, 4096, 4352, 0.06), 256),
+            check_sw("full", "sw_full edge cases", edge, 128)],
+        "banded_sw_scores": [
+            check_sw("scores", "sw_scores band 256, 1024 x 4 kb",
+                     sw_batch(rng, 1024, 4096, 8192, 0.06), 256),
+            check_sw("scores", "sw_scores band 512, 128 x 16 kb",
+                     sw_batch(rng, 128, 16384, 32768, 0.06), 512,
+                     kernel_iters=3),
+            check_sw("scores", "sw_scores edge cases (7 pairs)", edge, 128)],
+    }
+    chain = check_chain("chain 16384 x 32", chain_groups(rng, 16384))
+    others["chain_and_extents"] = [
+        check_chain("chain 4096 x 256", chain_groups(rng, 4096, 256),
+                    kernel_iters=10, plain_iters=1),
+        check_chain("chain gap-cost table (dd 0..500)", beta_groups())]
+    out = {"banded_sw_full": full, "banded_sw_scores": scores,
+           "chain_and_extents": chain}
+    for name, rec in out.items():
+        rec["max_abs_err"] = max([rec["max_abs_err"]]
+                                 + [o["max_abs_err"] for o in others[name]])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +434,38 @@ def check_accuracy(al, truth, label):
     if mapped < 0.90 or right < 0.95:
         raise AssertionError(f"{label}: accuracy below 90% mapped / 95% "
                              f"correct")
+
+
+def require_same_records(label, a, b, fields=None):
+    """All 18 AlignList fields (or the given ones) equal, row for row."""
+    from megapath_nano_tpu_torch.align.records import ALIGN_DTYPE
+
+    if len(a) != len(b) or len(a) == 0:
+        raise AssertionError(f"{label}: row counts {len(a)} vs {len(b)}")
+    for col in fields or ALIGN_DTYPE.names:
+        if not np.array_equal(a.data[col], b.data[col]):
+            raise AssertionError(f"{label}: the two differ in {col}")
+    log(f"  {label}: {len(fields or ALIGN_DTYPE.names)} fields equal on "
+        f"{len(a)} rows")
+
+
+def require_nearly_same(label, a, b, fields, max_share):
+    """At most max_share of the rows differ in any of the fields (rows
+    paired by position when the counts agree, else compared as sets)."""
+    if len(a) == len(b):
+        bad = np.zeros(len(a), bool)
+        for col in fields:
+            bad |= a.data[col] != b.data[col]
+        n_bad = int(bad.sum())
+    else:
+        rows_a = {tuple(r) for r in a.data[list(fields)].tolist()}
+        rows_b = {tuple(r) for r in b.data[list(fields)].tolist()}
+        n_bad = len(rows_a ^ rows_b)
+    share = n_bad / max(len(b), 1)
+    log(f"  {label}: {n_bad} of {len(b)} rows differ ({100 * share:.3f}%, "
+        f"at most {100 * max_share:.0f}% allowed)")
+    if len(b) == 0 or share > max_share:
+        raise AssertionError(f"{label}: {n_bad} of {len(b)} rows differ")
 
 
 def stage_breakdown(aligner, reads):
@@ -358,8 +526,8 @@ def stage_breakdown(aligner, reads):
 def phase_map(rng):
     import torch
 
-    from megapath_nano_tpu.index.minimizer import MinimizerIndex
     from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
+    from megapath_nano_tpu_torch.index.minimizer import MinimizerIndex
     from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
     from megapath_nano_tpu_torch.kernels.sw import banded_sw_full
 
@@ -375,7 +543,7 @@ def phase_map(rng):
     reads, truth = simulate_reads(rng, genomes, 32768, 1000, 0.06)
     log(f"  simulated 32768 reads in {time.perf_counter() - t0:.1f} s")
 
-    aligner = MinimizerAligner(index, device="cuda")
+    aligner = MinimizerAligner(index)     # the default device is the card
     t0 = time.perf_counter()
     aligner.map_reads(reads, slice_size=4096, emit_cigars=False)
     torch.cuda.synchronize()
@@ -389,17 +557,17 @@ def phase_map(rng):
     res = aligner.map_reads(reads, slice_size=4096, emit_cigars=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"sw": banded_sw_full.launches,
-                "chain": chain_and_extents.launches}
+    launches = {"banded_sw_full": banded_sw_full.launches,
+                "chain_and_extents": chain_and_extents.launches}
     log(f"  timed run: 32768 reads in {dt:.3f} s = "
         f"{32768 / dt:.1f} reads/s; launches {launches}; "
         f"overflow_stats {aligner.overflow_stats}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    if not (launches["sw"] > 0 and launches["chain"] > 0):
+    if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel was not launched on the path: "
                              f"{launches}")
     check_accuracy(res, truth, "1 kb reads")
-    stages = stage_breakdown(aligner, reads[:4096])
+    stage_breakdown(aligner, reads[:4096])
 
     long_reads, long_truth = simulate_reads(rng, genomes, 2048, 4000, 0.06)
     before = dict(sw=banded_sw_full.launches, chain=chain_and_extents.launches)
@@ -412,8 +580,7 @@ def phase_map(rng):
             chain_and_extents.launches == before["chain"]:
         raise AssertionError("4 kb map did not launch both kernels")
     check_accuracy(res4, long_truth, "4 kb reads")
-    return index, aligner, reads, launches, {"reads_per_s": 32768 / dt,
-                                             "stages_ms": stages}
+    return index, genomes, aligner, reads, truth, launches
 
 
 # ---------------------------------------------------------------------------
@@ -421,22 +588,259 @@ def phase_map(rng):
 
 
 def phase_card_vs_cpu(index, aligner, reads):
-    from megapath_nano_tpu.align.records import ALIGN_DTYPE
     from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
 
-    log("phase 4: card vs CPU (plain versions), 512 reads")
+    log("phase 4: card vs CPU (plain versions), 512 reads, PAF mode")
     sub = reads[:512]
     gpu = aligner.map_reads(sub, emit_cigars=False)
     t0 = time.perf_counter()
     cpu = MinimizerAligner(index, device="cpu").map_reads(sub,
                                                           emit_cigars=False)
     log(f"  CPU map: {time.perf_counter() - t0:.1f} s")
-    if len(gpu) != len(cpu) or len(gpu) == 0:
-        raise AssertionError(f"row counts differ: {len(gpu)} vs {len(cpu)}")
-    for col in ALIGN_DTYPE.names:
-        if not np.array_equal(gpu.data[col], cpu.data[col]):
-            raise AssertionError(f"card and CPU differ in {col}")
-    log(f"  all 18 fields equal on {len(gpu)} rows")
+    require_same_records("card vs CPU", gpu, cpu)
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+
+
+def check_cigars(al, label):
+    """Every record has its CIGAR under the 3-key, and the CIGAR spans the
+    record: M+I = read interval, M+D = sequence interval."""
+    if not al.cigar_map:
+        raise AssertionError(f"{label}: no cigar_map")
+    for row in al.data:
+        key = (int(row["read_id"]), int(row["sequence_id"]),
+               int(row["sequence_from"]))
+        cigar, _oriented_from, strand = al.cigar_map[key]
+        q = sum(n for n, op in cigar if op in "MI")
+        t = sum(n for n, op in cigar if op in "MD")
+        if q != row["read_to"] - row["read_from"] \
+                or t != row["sequence_to"] - row["sequence_from"] \
+                or strand != row["strand"]:
+            raise AssertionError(f"{label}: CIGAR of {key} does not span "
+                                 f"its record")
+    log(f"  {label}: {len(al)} CIGARs span their records")
+
+
+def traced_cigar_map(aligner, reads, label):
+    """Map `reads` in one piece (no worker threads) with a timer on each
+    stage of the host-chained path, and keep every pair the native
+    traceback was given. Then hold the traceback's final score of each pair
+    to the score-only kernel's score for the same pair, computed again on
+    the card at the map's band. Returns the AlignList."""
+    import torch
+
+    from megapath_nano_tpu_torch.align import pipeline
+    from megapath_nano_tpu_torch.kernels.sw import banded_sw_scores
+
+    dev_events = {"chain chunks": [], "device scores": []}
+    host_s = {"collect_anchors": 0.0, "pack_groups": 0.0,
+              "native traceback": 0.0, "select_alignments": 0.0}
+    traced = {}     # (id(read), id(ref)) -> [read, ref, native score]
+    bands = []
+    saved = {n: getattr(pipeline, n) for n in (
+        "chain_and_extents", "banded_sw_scores", "collect_anchors",
+        "pack_groups", "banded_align_batch", "select_alignments")}
+
+    def timed_dev(stage, fn):
+        def run(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            dev_events[stage].append((s, e))
+            if stage == "device scores":
+                bands.append(kw["band"])
+            return out
+        return run
+
+    def timed_host(stage, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host_s[stage] += time.perf_counter() - t0
+            if stage == "native traceback":   # the redo overwrites
+                for r, t, aln in zip(a[0], a[1], out):
+                    traced[(id(r), id(t))] = [r, t, aln.score]
+            return out
+        return run
+
+    pipeline.chain_and_extents = timed_dev("chain chunks",
+                                           saved["chain_and_extents"])
+    pipeline.banded_sw_scores = timed_dev("device scores",
+                                          saved["banded_sw_scores"])
+    pipeline.collect_anchors = timed_host("collect_anchors",
+                                          saved["collect_anchors"])
+    pipeline.pack_groups = timed_host("pack_groups", saved["pack_groups"])
+    pipeline.banded_align_batch = timed_host("native traceback",
+                                             saved["banded_align_batch"])
+    pipeline.select_alignments = timed_host("select_alignments",
+                                            saved["select_alignments"])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = aligner.map_reads(reads, emit_cigars=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for n, fn in saved.items():
+            setattr(pipeline, n, fn)
+    out = {k: sum(s.elapsed_time(e) for s, e in v)
+           for k, v in dev_events.items()}
+    busy = sum(out.values())
+    out.update({k + " (host)": 1e3 * v for k, v in host_s.items()})
+    out["Python record loops and uploads (host, the rest)"] = \
+        1e3 * wall - busy - 1e3 * sum(host_s.values())
+    out["wall"] = 1e3 * wall
+    log("  %s, stage times for one piece of %d reads (ms): %s" % (
+        label, len(reads), ", ".join(f"{k} {v:.3f}" for k, v in out.items())))
+    log(f"  {label}: {len(reads) / wall:.1f} reads/s in one thread; the two "
+        f"kernels keep the device busy {100 * busy / (1e3 * wall):.2f}% of "
+        f"the wall (idle share {100 - 100 * busy / (1e3 * wall):.2f}%, "
+        f"copies not counted)")
+
+    # native score against the device score, pair by pair
+    if len(set(bands)) != 1:
+        raise AssertionError(f"{label}: bands {set(bands)}")
+    band = bands[0]
+    pairs = list(traced.values())
+    if len(pairs) != len(res):
+        raise AssertionError(f"{label}: {len(pairs)} pairs traced for "
+                             f"{len(res)} records")
+    q_max = max(256, 1 << (max(len(r) for r, _, _ in pairs) - 1).bit_length())
+    t_max = max(q_max,
+                1 << (max(len(t) for _, t, _ in pairs) - 1).bit_length())
+    dev = torch.device("cuda")
+    worst = 0
+    for s0 in range(0, len(pairs), 1024):
+        chunk = pairs[s0: s0 + 1024]
+        ra = np.full((len(chunk), q_max), 4, np.int8)
+        ta = np.full((len(chunk), t_max), 5, np.int8)
+        for j, (r, t, _) in enumerate(chunk):
+            ra[j, : len(r)] = r
+            ta[j, : len(t)] = t
+        rl = np.array([len(r) for r, _, _ in chunk], np.int32)
+        tl = np.array([len(t) for _, t, _ in chunk], np.int32)
+        sc, _, _ = banded_sw_scores(*(torch.from_numpy(x).to(dev)
+                                      for x in (ra, rl, ta, tl)), band=band,
+                                    **SW_PARAMS)
+        native = np.array([x for _, _, x in chunk], np.int64)
+        worst = max(worst, int(np.abs(sc.cpu().numpy() - native).max()))
+    if worst:
+        raise AssertionError(f"{label}: native traceback score differs from "
+                             f"the device score by up to {worst}")
+    log(f"  {label}: native score == device score on all {len(pairs)} "
+        f"traced pairs (band {band})")
+    return res
+
+
+def phase_cigar_map(rng, index, genomes, aligner, reads, truth):
+    import torch
+
+    from megapath_nano_tpu_torch.align.pipeline import (AlignParams,
+                                                        MinimizerAligner)
+    from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
+    from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
+                                                    banded_sw_scores)
+    from megapath_nano_tpu_torch.report.samout import write_sam
+
+    log("phase 5: CIGAR-mode map at 128 Mbp (host-chained path)")
+    n = 8192
+    sub, sub_truth = reads[:n], truth[:n]
+    t0 = time.perf_counter()
+    aligner.map_reads(sub[:2048], slice_size=1024)
+    torch.cuda.synchronize()
+    log(f"  warm-up (2048 reads): {time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    chain_and_extents.launches = 0
+    banded_sw_scores.launches = 0
+    banded_sw_full.launches = 0
+    t0 = time.perf_counter()
+    res = aligner.map_reads(sub, slice_size=4096, emit_cigars=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"chain_and_extents": chain_and_extents.launches,
+                "banded_sw_scores": banded_sw_scores.launches}
+    log(f"  timed run: {n} reads, slice 4096, two threads, in {dt:.3f} s = "
+        f"{n / dt:.1f} reads/s; launches {launches} (sw_full "
+        f"{banded_sw_full.launches}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel was not launched on the path: "
+                             f"{launches}")
+    check_accuracy(res, sub_truth, "1 kb reads, CIGAR mode")
+    check_cigars(res, "1 kb reads")
+    # PAF mode through the same host-chained path (fused dispatch off):
+    # the same candidates and windows, every field from the full-stats
+    # kernel instead of the traceback, so the 11 fields are equal exactly
+    unfused = MinimizerAligner(index, params=AlignParams(fused=False))
+    before = banded_sw_full.launches
+    paf_u = unfused.map_reads(sub, slice_size=4096, emit_cigars=False)
+    log(f"  PAF outside the fused gate: {banded_sw_full.launches - before} "
+        f"sw_full launches for {n} reads")
+    if banded_sw_full.launches == before:
+        raise AssertionError("the unfused PAF map did not launch sw_full")
+    require_same_records("PAF outside the fused gate vs CIGAR mode", paf_u,
+                         res, PAF_FIELDS)
+    # the fused PAF map seeds on the device and caps a group at 32 anchors,
+    # so a few windows differ by a few bases from the host-chained ones (in
+    # the reference as well); held to at most 1% of rows
+    paf = aligner.map_reads(sub, slice_size=4096, emit_cigars=False)
+    require_nearly_same("fused PAF mode vs CIGAR mode", paf, res, PAF_FIELDS,
+                        0.01)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smoke.sam")
+        write_sam(path, res, sub, index.seq_lengths)
+        with open(path) as f:
+            n_rec = sum(1 for line in f if not line.startswith("@"))
+        size = os.path.getsize(path)
+    if n_rec != len(res):
+        raise AssertionError(f"SAM has {n_rec} records for {len(res)} rows")
+    log(f"  SAM written: {n_rec} records, {size} bytes")
+
+    one = traced_cigar_map(aligner, sub[:4096], "1 kb slice")
+    first = res.data[res.data["read_id"] < 4096]
+    if not np.array_equal(one.data, first):
+        raise AssertionError("the traced slice differs from the timed run")
+
+    long_reads, long_truth = simulate_reads(rng, genomes, 512, 4000, 0.06)
+    res4 = traced_cigar_map(aligner, long_reads, "4 kb reads (band 256)")
+    check_accuracy(res4, long_truth, "4 kb reads, CIGAR mode")
+    check_cigars(res4, "4 kb reads")
+
+    ultra, ultra_truth = simulate_reads(rng, genomes, 8, 40000, 0.06)
+    t0 = time.perf_counter()
+    res40 = traced_cigar_map(aligner, ultra, "40 kb reads (band 512)")
+    check_accuracy(res40, ultra_truth, "40 kb reads, CIGAR mode")
+    check_cigars(res40, "40 kb reads")
+    before = banded_sw_scores.launches
+    paf40 = aligner.map_reads(ultra, emit_cigars=False)
+    if banded_sw_scores.launches == before or paf40.cigar_map is not None:
+        raise AssertionError("40 kb PAF map must go through sw_scores")
+    require_same_records("40 kb, PAF mode vs CIGAR mode", paf40, res40)
+    return launches, n / dt
+
+
+# ---------------------------------------------------------------------------
+# phase 6
+
+
+def phase_cigar_card_vs_cpu(index, aligner, reads):
+    from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
+
+    log("phase 6: card vs CPU (plain versions), 256 reads, CIGAR mode")
+    sub = reads[:256]
+    gpu = aligner.map_reads(sub, slice_size=128)
+    t0 = time.perf_counter()
+    cpu = MinimizerAligner(index, device="cpu").map_reads(sub, slice_size=128)
+    log(f"  CPU map: {time.perf_counter() - t0:.1f} s")
+    require_same_records("card vs CPU", gpu, cpu)
+    if gpu.cigar_map != cpu.cigar_map or not gpu.cigar_map:
+        raise AssertionError("card and CPU differ in cigar_map")
+    log(f"  cigar_map equal ({len(gpu.cigar_map)} entries)")
 
 
 def main():
@@ -445,17 +849,26 @@ def main():
     rng = np.random.default_rng(2026)
     phase_device()
     kstats = phase_kernels(rng)
-    index, aligner, reads, launches, _ = phase_map(rng)
+    index, genomes, aligner, reads, truth, paf_launches = phase_map(rng)
     phase_card_vs_cpu(index, aligner, reads)
+    cigar_launches, _ = phase_cigar_map(rng, index, genomes, aligner, reads,
+                                        truth)
+    phase_cigar_card_vs_cpu(index, aligner, reads)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
     kernels = []
-    for key, name, src, rep in (("sw", "banded_sw_full", SW_SOURCE,
-                                 SW_REPLACES),
-                                ("chain", "chain_and_extents", CHAIN_SOURCE,
-                                 CHAIN_REPLACES)):
-        err, ms, plain_ms = kstats[key]
+    for name, (src, rep) in KERNELS.items():
+        # launches: the count from the kernel's own main path (PAF-mode map
+        # for sw_full and chain, CIGAR-mode map for sw_scores); both paths'
+        # counts are in launches_by_path
+        by_path = {"paf_map": paf_launches.get(name, 0),
+                   "cigar_map": cigar_launches.get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[key],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "replaces": rep,
+                        "launches": by_path["paf_map"] or by_path["cigar_map"],
+                        **kstats[name], "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

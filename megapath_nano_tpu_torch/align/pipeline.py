@@ -1,12 +1,23 @@
-"""Seed -> chain -> extend map path in PyTorch (PAF mode).
+"""Seed -> chain -> extend map path in PyTorch.
 
-Port of the fused branch of megapath_nano_tpu.align.pipeline: one slice of
-reads is one device dispatch (`_fused_map_dispatch_devseed`: read unpack,
-device seeding, chain DP, per-read top-K gate and compaction, window
+Port of megapath_nano_tpu.align.pipeline, both branches of `map_reads`.
+
+The fused branch (PAF mode, `emit_cigars=False`, inside the fused gate): one
+slice of reads is one device dispatch (`_fused_map_dispatch_devseed`: read
+unpack, device seeding, chain DP, per-read top-K gate and compaction, window
 algebra, query/target gathers, full-stats banded extension), and the host
 reads back one row matrix and builds an AlignList (`fused_collect_np`). When
 a static cap overflows, only the cut-off read-id suffix re-runs through the
 host-seeded dispatch (`_fused_map_dispatch`), the partial redo.
+
+The host-chained branch (`emit_cigars=True`, and every PAF problem outside
+the fused gate): anchors are collected on the host, chained on the device
+in 4096-group chunks, and the top-K candidates per read are extended on the
+device: with full statistics (`_extend_full_dispatch`) in PAF mode when the
+windows stay below 2**15, else score only (`banded_sw_scores`), after which
+the kept alignments are traced back by the native banded aligner, whose
+score is cross-checked against the device score. Base-level CIGARs land in
+`AlignList.cigar_map`.
 
 The device functions take and return torch tensors on one device; the
 kernels (chain DP, banded extension) run as CUDA kernels on a CUDA device and
@@ -15,35 +26,32 @@ masked with 0xFFFF and become numpy uint16 on the host (torch's uint16
 supports too few ops to compute in).
 
 The host helpers below (`AlignParams` through `_unpack_counts_row`) are
-copies of the TPU package's, whose module imports jax; the AlignList parity
-tests hold the copies to the originals.
-
-Not ported yet: the CIGAR-emit path (`emit_cigars=True`) and problems
-outside the fused gate (the host-chained path); both raise
-NotImplementedError.
+copies of the TPU package's; the AlignList parity tests hold the copies to
+the originals.
 """
 
 from __future__ import annotations
 
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from megapath_nano_tpu.align.anchors import collect_anchors, pack_groups_flat
-from megapath_nano_tpu.align.records import ALIGN_DTYPE, AlignList
-from megapath_nano_tpu.index.minimizer import MinimizerIndex
+from megapath_nano_tpu_torch.align.anchors import (collect_anchors,
+                                                   pack_groups,
+                                                   pack_groups_flat)
 from megapath_nano_tpu_torch.align.chain import chain_and_extents
 from megapath_nano_tpu_torch.align.device_seed import (NO_RID,
                                                        build_groups_device)
-from megapath_nano_tpu_torch.kernels.sw import banded_sw_full
+from megapath_nano_tpu_torch.align.records import ALIGN_DTYPE, AlignList
+from megapath_nano_tpu_torch.index.minimizer import MinimizerIndex
+from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
+                                                banded_sw_scores)
+from megapath_nano_tpu_torch.native.banded import banded_align_batch
 from megapath_nano_tpu_torch.state import device_planes_from_numpy
-
-_LATER = ("not ported yet: the CIGAR-emit path and problems outside the "
-          "fused PAF gate land in a later slice of the PyTorch port; map "
-          "with emit_cigars=False within the fused gate, or use "
-          "megapath_nano_tpu")
+from megapath_nano_tpu_torch.utils.dna import revcomp
 
 # ---------------------------------------------------------------------------
 # device part
@@ -100,6 +108,22 @@ def _gather_queries(codes, rid, qlens, qs, wlen, strand, *, q_max: int):
     win = torch.gather(basep, 1, start[:, None].long() + cols)
     valid = (cols < wlen[:, None]) & (cols < (ql - qs)[:, None])
     return torch.where(valid, win, 4).to(torch.int8)
+
+
+def _extend_full_dispatch(packed2, exc_rid, exc_pos, qlens, meta, seq_data,
+                          *, q_max, t_max, band, match, mismatch, gap_open,
+                          gap_extend):
+    """PAF extension of host-chosen candidates: gather oriented query
+    windows from the packed read matrix and target windows from the resident
+    reference, then run the full-stats banded extension. meta rows (int32):
+    rid, qs, qwlen, strand, t_start, t_len."""
+    rid, qs, qwlen, strand, t_start, t_len = meta.unbind(0)
+    codes = _unpack_reads(packed2, exc_rid, exc_pos)
+    ra = _gather_queries(codes, rid, qlens, qs, qwlen, strand, q_max=q_max)
+    ta = _gather_windows(seq_data, t_start, t_max=t_max)
+    return banded_sw_full(ra, qwlen, ta, t_len, band=band, match=match,
+                          mismatch=mismatch, gap_open=gap_open,
+                          gap_extend=gap_extend)
 
 
 def _goffs_from_cnt(cnt):
@@ -286,8 +310,8 @@ def _to_host_u16(rows: torch.Tensor) -> np.ndarray:
 @dataclass
 class AlignParams:
     """map-ont-flavored parameters (minimap2 defaults where applicable).
-    The TPU package's fields that only its unported paths read (backend,
-    extend_batch, max_anchors_per_group) are left out."""
+    The TPU package's `backend` field has no counterpart: the tensors'
+    device picks kernel or plain version."""
 
     match: int = 2
     mismatch: int = 4
@@ -295,6 +319,7 @@ class AlignParams:
     gap_extend: int = 2
     band: int | None = None    # None = auto by read length (128/256/512)
     max_occ: int = 64
+    max_anchors_per_group: int = 256
     min_group_anchors: int = 3
     min_chain_score: int = 40
     max_alignments_per_read: int = 50   # reference uses -N 50
@@ -303,6 +328,7 @@ class AlignParams:
     min_alignment_score: int = 0
     window_pad: int = 64
     gap_break: int = 5000
+    extend_batch: int = 1024
     fused_anchor_cap: int = 32   # ragged per-group anchor cap (fused path)
     tiebreaker_seed: int = 0
     fused: bool = True   # PAF mode: single-dispatch map step
@@ -601,13 +627,20 @@ def _bucket(x, lo=256):
 
 
 class MinimizerAligner:
-    """End-to-end read mapper against a MinimizerIndex, on one torch device
-    named by the caller (`device="cuda"` or `"cpu"`)."""
+    """End-to-end read mapper against a MinimizerIndex, on one torch device:
+    the GPU unless the caller asks for `device="cpu"` (plain PyTorch versions
+    of the kernels)."""
 
     def __init__(self, index: MinimizerIndex, meta: SequenceMeta | None = None,
-                 params: AlignParams | None = None, *, device):
+                 params: AlignParams | None = None, *, device="cuda"):
         if index.seq_data is None:
             raise ValueError("index must keep target sequences")
+        if torch.device(device).type == "cuda" \
+                and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"MinimizerAligner(device={str(device)!r}): no CUDA device is "
+                f'available; pass device="cpu" to run the plain PyTorch '
+                f"versions on the CPU")
         self.index = index
         self.params = params or AlignParams()
         self.meta = meta or SequenceMeta.single_assembly_per_sequence(
@@ -748,17 +781,26 @@ class MinimizerAligner:
         blk = _to_host_u16(fut)
         return self._fused_collect_np(blk[:-1], ctx[0], id_base, read_names)
 
-    def _concat_parts(self, parts, read_names):
+    def _concat_parts(self, parts, read_names, emit_cigars=False):
+        """One AlignList from per-slice (or partial-redo) parts, sorted by
+        (read, sequence, position); with emit_cigars their cigar_maps are
+        merged (read ids are global, so the keys do not collide)."""
         datas = [al.data for al in parts if len(al)]
         if not datas:
             return AlignList.empty(self.index.seq_names,
                                    self.meta.assembly_names, read_names or [])
+        cigar_map: dict | None = None
+        if emit_cigars:
+            cigar_map = {}
+            for al in parts:
+                if len(al):
+                    cigar_map.update(al.cigar_map or {})
         data = np.concatenate(datas)
         order = np.lexsort((data["sequence_from"], data["sequence_id"],
                             data["read_id"]))
         return AlignList(data[order], list(self.index.seq_names),
                          list(self.meta.assembly_names), read_names or [],
-                         None)
+                         cigar_map)
 
     def _devseed_cutoff(self, counts: np.ndarray, n_reads: int,
                         caps=None) -> int:
@@ -902,36 +944,54 @@ class MinimizerAligner:
                 and len(self.index.seq_names) < 2 ** 16
                 and self.index.seq_data.size < 2 ** 31 - 2 ** 16)
 
+    def _target_window(self, seq_id: int, start: int, end: int) -> np.ndarray:
+        off = self.index.seq_offsets
+        s0, s1 = int(off[seq_id]), int(off[seq_id + 1])
+        start = max(s0 + start, s0)
+        end = min(s0 + end, s1)
+        return self.index.seq_data[start:end]
+
     def map_reads(self, reads: list[np.ndarray],
                   read_names: list[str] | None = None,
                   slice_size: int | None = None,
                   emit_cigars: bool = True) -> AlignList:
-        """Map reads in PAF mode (emit_cigars=False): every alignment field
-        comes from the full-stats extension kernel and cigar_map is None.
-        With slice_size set and more reads than that, slices are dispatched
-        in waves and fetched with one transfer per wave.
-        emit_cigars=True is not ported yet and raises NotImplementedError."""
-        if emit_cigars:
-            raise NotImplementedError(_LATER)
-        if slice_size and len(reads) > slice_size:
-            return self._map_reads_pipelined(reads, read_names, slice_size)
-        return self._map_reads_single(reads, read_names)
+        """Map reads. With slice_size set and more reads than that, the
+        reads go slice by slice: in PAF mode inside the fused gate as waves
+        of asynchronous dispatches, else on two worker threads, so that one
+        slice's host work (anchor collection, native traceback, both of
+        which release the GIL) overlaps the other's device DP.
 
-    def _map_reads_pipelined(self, reads, read_names, slice_size):
+        emit_cigars=False skips the host traceback: all alignment fields
+        (begin/end/match/edit/score) come from the full-stats device kernel
+        and cigar_map is None, the PAF-level mode (minimap2 without -a).
+        Consumers that need base-level CIGARs (SAM output, AMR consensus,
+        variant candidates) map with emit_cigars=True."""
+        if not emit_cigars:
+            # before any worker thread: the lazy planes dict is not safe to
+            # fill from two threads
+            self._device_refs()
+            self._device_index_meta()
+        if slice_size and len(reads) > slice_size:
+            return self._map_reads_pipelined(reads, read_names, slice_size,
+                                             emit_cigars)
+        return self._map_reads_single(reads, read_names,
+                                      emit_cigars=emit_cigars)
+
+    def _map_reads_pipelined(self, reads, read_names, slice_size,
+                             emit_cigars=True):
         read_max = _bucket(max(len(r) for r in reads))
-        if not self._fused_ok(read_max, slice_size):
-            raise NotImplementedError(_LATER)
-        parts = self._map_slices_async(reads, slice_size, read_max)
-        datas = [al.data for al in parts if len(al)]
-        if not datas:
-            return AlignList.empty(self.index.seq_names,
-                                   self.meta.assembly_names, read_names or [])
-        data = np.concatenate(datas)
-        order = np.lexsort((data["sequence_from"], data["sequence_id"],
-                            data["read_id"]))
-        return AlignList(data[order], list(self.index.seq_names),
-                         list(self.meta.assembly_names), read_names or [],
-                         None)
+        if not emit_cigars and self._fused_ok(read_max, slice_size):
+            parts = self._map_slices_async(reads, slice_size, read_max)
+        else:
+            slices = [(s, reads[s: s + slice_size])
+                      for s in range(0, len(reads), slice_size)]
+            with ThreadPoolExecutor(max_workers=2) as ex:
+                parts = list(ex.map(
+                    lambda sv: self._map_reads_single(
+                        sv[1], None, id_base=sv[0],
+                        emit_cigars=emit_cigars),
+                    slices))
+        return self._concat_parts(parts, read_names, emit_cigars)
 
     def _map_slices_async(self, reads, slice_size, read_max):
         """Slices in waves: every slice's dispatch is submitted back to back
@@ -1005,8 +1065,270 @@ class MinimizerAligner:
 
     def _map_reads_single(self, reads: list[np.ndarray],
                           read_names: list[str] | None = None,
-                          id_base: int = 0) -> AlignList:
+                          id_base: int = 0,
+                          emit_cigars: bool = True) -> AlignList:
+        p = self.params
+        idx = self.index
+        n_seqs = len(idx.seq_names)
+        seq_lens = idx.seq_lengths
+
+        # PAF mode on in-range problems: the whole map step (chain, top-K,
+        # windows, extension) is one fused device dispatch
         read_max = _bucket(max(len(r) for r in reads))
-        if not self._fused_ok(read_max, len(reads)):
-            raise NotImplementedError(_LATER)
-        return self._finish_fused(reads, read_names, id_base, read_max)
+        if not emit_cigars and self._fused_ok(read_max, len(reads)):
+            return self._finish_fused(reads, read_names, id_base, read_max)
+
+        empty = AlignList.empty(idx.seq_names, self.meta.assembly_names,
+                                read_names or [])
+        groups = collect_anchors(idx, reads, max_occ=p.max_occ,
+                                 min_group_anchors=p.min_group_anchors,
+                                 gap_break=p.gap_break)
+        if groups.n_groups == 0:
+            return empty
+
+        # bucket the anchor dimension: the smallest power of two covering
+        # the largest group (capped); typical reads need 32-64, not 256
+        sizes = np.diff(groups.group_offsets)
+        a_bucket = 32
+        while a_bucket < min(int(sizes.max()), p.max_anchors_per_group):
+            a_bucket *= 2
+        qg, tg, cnt, t_base, _sel = pack_groups(groups, max_anchors=a_bucket)
+
+        # chain in fixed-size chunks; all chunk outputs are concatenated on
+        # the device and fetched in one transfer
+        ng = len(cnt)
+        CHUNK = 4096
+        up = self._upload
+        chunk_outs = []
+        for c0 in range(0, ng, CHUNK):
+            c1 = min(c0 + CHUNK, ng)
+            m = c1 - c0
+            qg_c = np.zeros((CHUNK, qg.shape[1]), qg.dtype)
+            tg_c = np.zeros((CHUNK, tg.shape[1]), tg.dtype)
+            cnt_c = np.zeros(CHUNK, np.int32)
+            qg_c[:m] = qg[c0:c1]
+            tg_c[:m] = tg[c0:c1]
+            cnt_c[:m] = cnt[c0:c1]
+            chunk_outs.append(chain_and_extents(up(qg_c), up(tg_c),
+                                                up(cnt_c)))
+        stacked = torch.cat(chunk_outs, dim=1).cpu().numpy()[:, :ng]
+        best = stacked[0].astype(np.int64)
+        q_min, q_max_, t_min, t_max_ = stacked[1:5]
+
+        keep = best >= p.min_chain_score
+        g_ids = np.flatnonzero(keep)
+        if len(g_ids) == 0:
+            return empty
+
+        # top-K candidate groups per read by chain score
+        order = np.lexsort((-best[g_ids], groups.group_read[g_ids]))
+        g_sorted = g_ids[order]
+        rids = groups.group_read[g_sorted]
+        rank = np.zeros(len(g_sorted), np.int64)
+        same = np.flatnonzero(np.append(False, rids[1:] == rids[:-1]))
+        for s in same:  # cumulative rank within read runs
+            rank[s] = rank[s - 1] + 1
+        g_final = g_sorted[rank < p.max_alignments_per_read]
+
+        # extension windows from device-computed chain extents
+        recs = []
+        ext_qlens, ext_starts, ext_wlens = [], [], []
+        for g in g_final:
+            rid = int(groups.group_read[g])
+            seq_id = int(groups.group_seq[g])
+            strand = int(groups.group_strand[g])
+            qlen = len(reads[rid])
+            q_lo = int(q_min[g]) - (idx.k - 1)
+            q_hi = int(q_max_[g]) + 1
+            t_lo = int(t_min[g]) + int(t_base[g]) - (idx.k - 1)
+            t_hi = int(t_max_[g]) + int(t_base[g]) + 1
+            # extension problem: slice BOTH query and target around the
+            # chain so the alignment diagonal starts at ~(0, 0), as the
+            # diagonal-banded kernel requires; correct for partial matches
+            # (e.g. a long query containing a short gene mid-way).
+            # Diagonal back-shift for widened bands (see _fused_tail).
+            wband = p.band if p.band is not None else 0
+            wpad = p.window_pad
+            dshift = min(wband // 8, 64) if wband > 128 else 0
+            seq_off = int(idx.seq_offsets[seq_id])
+            seq_len = int(seq_lens[seq_id])
+            left = min(q_lo, t_lo) + wpad
+            right = min(qlen - q_hi, seq_len - t_hi) + wpad
+            qs = max(q_lo - left, 0)
+            qe = min(q_hi + right, qlen)
+            w_lo = max(t_lo - (q_lo - qs) - dshift, 0)
+            w_hi = min(t_hi + (qe - q_hi) + dshift, seq_len)
+            recs.append(dict(rid=rid, seq_id=seq_id, strand=strand,
+                             qlen=qlen, w_lo=w_lo, w_hi=w_hi, qs=qs, qe=qe,
+                             chain_score=int(best[g]),
+                             # un-padded chain extents (oriented q frame /
+                             # absolute t): the coordinates minimap2 uses
+                             # for primary/secondary marking (mm_set_parent
+                             # runs on chains, before base-level extension)
+                             cq_lo=max(q_lo, 0), cq_hi=min(q_hi, qlen),
+                             ct_lo=max(t_lo, 0), ct_hi=min(t_hi, seq_len)))
+            ext_qlens.append(qe - qs)
+            ext_starts.append(seq_off + w_lo)
+            ext_wlens.append(w_hi - w_lo)
+
+        # batched banded extension on the device, window shapes bucketed to
+        # powers of two as in the reference
+        n_ext = len(recs)
+        q_max = _bucket(max(ext_qlens))
+        t_max = _bucket(max(max(ext_wlens), q_max))
+        band = self._band_for(q_max)
+        # the full-stats kernel (PAF mode) needs windows < 32k for its
+        # packed companions; beyond that, score on the device and trace
+        # back on the host
+        full_ok = (not emit_cigars) and q_max + band < 2 ** 15 \
+            and max(t_max, q_max) + band < 2 ** 15
+        sw_kw = dict(band=band, match=p.match, mismatch=p.mismatch,
+                     gap_open=p.gap_open, gap_extend=p.gap_extend)
+
+        if full_ok:
+            # single extension dispatch: the packed read batch is uploaded
+            # once; query windows (with strand flip) and target windows are
+            # both gathered on the device
+            mp = ((n_ext + 1023) // 1024) * 1024
+            packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max)
+            meta_a = np.zeros((6, mp), np.int32)
+            meta_a[0, :n_ext] = [r["rid"] for r in recs]
+            meta_a[1, :n_ext] = [r["qs"] for r in recs]
+            meta_a[2, :n_ext] = ext_qlens
+            meta_a[3, :n_ext] = [r["strand"] for r in recs]
+            meta_a[4, :n_ext] = ext_starts
+            meta_a[5, :n_ext] = ext_wlens
+            qlens_a = np.array([len(r) for r in reads], np.int32)
+            full = _extend_full_dispatch(
+                up(packed2), up(exc_rid), up(exc_pos), up(qlens_a),
+                up(meta_a), self._device_refs(), q_max=q_max, t_max=t_max,
+                **sw_kw)[:n_ext].cpu().numpy().astype(np.int64)
+            scores = full[:, 0]
+        else:
+            ext_reads = [
+                (reads[r["rid"]] if r["strand"] == 0
+                 else revcomp(reads[r["rid"]]))[r["qs"]: r["qe"]]
+                for r in recs]
+            ext_refs = [idx.seq_data[s: s + L]
+                        for s, L in zip(ext_starts, ext_wlens)]
+            score_parts = []
+            for s0 in range(0, n_ext, p.extend_batch):
+                s1 = min(s0 + p.extend_batch, n_ext)
+                m = s1 - s0
+                ra = np.full((m, q_max), 4, np.int8)
+                ta = np.full((m, t_max), 5, np.int8)
+                rl = np.zeros(m, np.int32)
+                tl = np.zeros(m, np.int32)
+                for i in range(m):
+                    rr, tt = ext_reads[s0 + i], ext_refs[s0 + i]
+                    ra[i, : len(rr)] = rr
+                    ta[i, : len(tt)] = tt
+                    rl[i] = len(rr)
+                    tl[i] = len(tt)
+                sc, _, _ = banded_sw_scores(up(ra), up(rl), up(ta), up(tl),
+                                            **sw_kw)
+                score_parts.append(sc)
+            # one device->host transfer for all extension scores
+            scores = torch.cat(score_parts).cpu().numpy().astype(np.int64)
+
+        # minimap2-style multi-locus selection (-N/-p semantics) on the
+        # un-padded chain extents + device extension scores; exact emit
+        # (begin/end/CIGAR) then runs only on the kept set
+        ok = np.flatnonzero(scores > p.min_alignment_score)
+        if len(ok) == 0:
+            return empty
+        rid_c = np.array([recs[i]["rid"] for i in ok], np.int64)
+        seq_c = np.array([recs[i]["seq_id"] for i in ok], np.int64)
+        strand_c = np.array([recs[i]["strand"] for i in ok], np.int64)
+        qlen_c = np.array([recs[i]["qlen"] for i in ok], np.int64)
+        cq_lo = np.array([recs[i]["cq_lo"] for i in ok], np.int64)
+        cq_hi = np.array([recs[i]["cq_hi"] for i in ok], np.int64)
+        qf_c = np.where(strand_c == 0, cq_lo, qlen_c - cq_hi)
+        qt_c = np.where(strand_c == 0, cq_hi, qlen_c - cq_lo)
+        tf_c = np.array([recs[i]["ct_lo"] for i in ok], np.int64)
+        tt_c = np.array([recs[i]["ct_hi"] for i in ok], np.int64)
+        sel, mapq_sel, _is_sec = select_alignments(
+            rid_c, scores[ok], qf_c, qt_c, seq_c, strand_c, tf_c, tt_c,
+            secondary_ratio=p.secondary_ratio, mask_level=p.mask_level,
+            max_secondary=p.max_alignments_per_read)
+        emit_idx = [int(i) for i in ok[sel]]
+
+        if full_ok:
+            # PAF mode: every field comes from the device kernel's carried
+            # path statistics; no host DP, no CIGARs
+            stats = [(int(full[i, 5]), int(full[i, 1]), int(full[i, 6]),
+                      int(full[i, 2]), int(full[i, 3]), int(full[i, 4]),
+                      int(full[i, 0])) for i in emit_idx]
+        else:
+            # exact emit (begin/end/CIGAR/match/NM) via the native threaded
+            # banded aligner, O(band*len) per kept alignment: narrow band
+            # first (2x cheaper); any pair whose score misses the device
+            # banded score is redone at the full band, so the cross-check
+            # guarantees exactness and the common case the speed
+            emit_band = max(64, band // 2)
+            emit_alns = banded_align_batch(
+                [ext_reads[i] for i in emit_idx],
+                [ext_refs[i] for i in emit_idx],
+                band=emit_band, match=p.match, mismatch=p.mismatch,
+                gap_open=p.gap_open, gap_extend=p.gap_extend)
+            redo = [r for r, i in enumerate(emit_idx)
+                    if emit_alns[r].score != scores[i]]
+            if redo:
+                fixed = banded_align_batch(
+                    [ext_reads[emit_idx[r]] for r in redo],
+                    [ext_refs[emit_idx[r]] for r in redo],
+                    band=band, match=p.match, mismatch=p.mismatch,
+                    gap_open=p.gap_open, gap_extend=p.gap_extend)
+                for r, a in zip(redo, fixed):
+                    emit_alns[r] = a
+            stats = [(a.read_begin, a.read_end, a.ref_begin, a.ref_end,
+                      a.n_match, a.edit_dist, int(a.score))
+                     for a in emit_alns]
+
+        out = np.zeros(len(emit_idx), ALIGN_DTYPE)
+        cigar_map: dict | None = {} if emit_cigars else None
+        best_for_pair: dict[tuple, int] = {}  # (rid, sid) -> best score seen
+        for row, (i, st) in enumerate(zip(emit_idx, stats)):
+            rb, re_, tb, te, n_match, edit_dist, score = st
+            r = recs[i]
+            rid = r["rid"]
+            seq_id = r["seq_id"]
+            qlen = r["qlen"]
+            ob = r["qs"] + rb                 # oriented-frame begin/end
+            oe = r["qs"] + re_
+            if r["strand"] == 0:
+                read_from, read_to = ob, oe + 1
+            else:  # flip back to original read coordinates
+                read_from = qlen - (oe + 1)
+                read_to = qlen - ob
+            seq_from = r["w_lo"] + tb
+            seq_to = r["w_lo"] + te + 1
+            out[row] = (
+                rid + id_base, qlen, read_from, read_to, r["strand"], seq_id,
+                int(seq_lens[seq_id]), seq_from, seq_to, n_match,
+                int(mapq_sel[row]), edit_dist, score,
+                int(self.meta.assembly_idx[seq_id]),
+                int(self.meta.tax_id[seq_id]),
+                int(self.meta.species_tax_id[seq_id]),
+                int(self.meta.genus_tax_id[seq_id]),
+                0.0,
+            )
+            if cigar_map is not None:
+                entry = (emit_alns[row].cigar, r["qs"] + rb, r["strand"])
+                # every locus is addressable by (rid, sid, seq_from); the
+                # best locus per (rid, sid) also owns the 2-key used by
+                # per-(read, seq) consumers (variant/, amr/consensus)
+                cigar_map[(rid + id_base, seq_id, seq_from)] = entry
+                pk = (rid + id_base, seq_id)
+                if score > best_for_pair.get(pk, -1):
+                    best_for_pair[pk] = score
+                    cigar_map[pk] = entry
+        out["alignment_score_tiebreaker"] = _stable_uniform(
+            p.tiebreaker_seed, out["read_id"],
+            out["sequence_id"].astype(np.int64) * np.int64(n_seqs + 1)
+            + out["sequence_from"])
+        order = np.lexsort((out["sequence_from"], out["sequence_id"],
+                            out["read_id"]))
+        return AlignList(out[order], list(idx.seq_names),
+                         list(self.meta.assembly_names), read_names or [],
+                         cigar_map)

@@ -126,7 +126,7 @@ def _chain_cuda(q, t, cnt, beta, *, window, k, max_dist, bandwidth):
         q.data_ptr(), t.data_ptr(), cnt.data_ptr(), beta.data_ptr(),
         out.data_ptr(), n, a, window, k, max_dist, bandwidth, device,
         stream), "mpn_chain")
-    chain_and_extents.launches += 1
+    build.count_launch(chain_and_extents)
     return out
 
 

@@ -1,14 +1,18 @@
-"""Batched banded local affine-gap Smith-Waterman with full path statistics.
+"""Batched banded local affine-gap Smith-Waterman: full path statistics
+(`banded_sw_full`) and score only (`banded_sw_scores`).
 
-Port of megapath_nano_tpu.kernels.sw.banded_sw_full. The TPU kernel
-`_sw_kernel_full` becomes the hand-written CUDA kernel in
-`csrc/sw_full.cu`; `banded_sw_full_torch` is its plain PyTorch version, a
-row loop over the same recurrence (`_row_step_full_factory`,
-`_reduce_best`, `_full_outputs` of the TPU package).
+Port of megapath_nano_tpu.kernels.sw. The TPU kernel `_sw_kernel_full`
+becomes the hand-written CUDA kernel in `csrc/sw_full.cu`, and `_sw_kernel`
+the one in `csrc/sw_scores.cu`. `banded_sw_full_torch` and
+`banded_sw_scores_torch` are their plain PyTorch versions, row loops over
+the same recurrences (`_row_step_full_factory` / `_row_step_factory`,
+`_reduce_best`, `_full_outputs` of the TPU package). The two row steps
+differ in the carried E: the full-stats step zeroes it on dead (sentinel 5)
+slots, the score-only step does not.
 
-The wrapper dispatches on where the tensors lie: on the CPU it runs the
+Each wrapper dispatches on where the tensors lie: on the CPU it runs the
 plain version, on a CUDA device it launches the kernel (or raises). It counts
-its kernel launches in `banded_sw_full.launches`.
+its kernel launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -43,8 +47,6 @@ def _prepare(reads, read_lens, refs, ref_lens, band):
     if band % 128 or not 0 < band <= 1024:
         raise ValueError(f"band must be a multiple of 128 in [128, 1024]; "
                          f"got {band}")
-    if q_max + band >= 2 ** 15 or t_max + band >= 2 ** 15:
-        raise ValueError("full-stats kernel packing needs windows < 32k")
     q_pad = (-q_max) % 128
     reads = _pad_cols(reads.to(torch.int8), 0, q_pad, 4)
     q_max += q_pad
@@ -61,6 +63,15 @@ def _prepare(reads, read_lens, refs, ref_lens, band):
                                            device=refs.device), refs_padded)
     return (reads.contiguous(), read_lens.to(torch.int32).contiguous(),
             refs_padded.contiguous())
+
+
+def _same_device(reads, read_lens, refs, ref_lens):
+    dev = reads.device
+    for name, t in (("read_lens", read_lens), ("refs", refs),
+                    ("ref_lens", ref_lens)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, reads on {dev}")
+    return dev
 
 
 def _shift_left1(x, fill):
@@ -205,7 +216,7 @@ def _sw_full_cuda(reads, read_lens, refs_padded, *, band, match, mismatch,
         reads.data_ptr(), read_lens.data_ptr(), refs_padded.data_ptr(),
         out.data_ptr(), n, q_max, refs_padded.shape[1], band, match,
         mismatch, gap_open, gap_extend, device, stream), "mpn_sw_full")
-    banded_sw_full.launches += 1
+    build.count_launch(banded_sw_full)
     return out
 
 
@@ -221,11 +232,9 @@ def banded_sw_full(reads, read_lens, refs, ref_lens, *, band: int = 128,
     with no positive cell reports begin = -band and end_ref = -band/2.
     batch_tile is accepted for signature parity and not used."""
     del batch_tile
-    dev = reads.device
-    for name, t in (("read_lens", read_lens), ("refs", refs),
-                    ("ref_lens", ref_lens)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, reads on {dev}")
+    dev = _same_device(reads, read_lens, refs, ref_lens)
+    if reads.shape[1] + band >= 2 ** 15 or refs.shape[1] + band >= 2 ** 15:
+        raise ValueError("full-stats kernel packing needs windows < 32k")
     reads, read_lens, refs_padded = _prepare(reads, read_lens, refs,
                                              ref_lens, band)
     kw = dict(band=band, match=match, mismatch=mismatch, gap_open=gap_open,
@@ -238,3 +247,112 @@ def banded_sw_full(reads, read_lens, refs, ref_lens, *, band: int = 128,
 
 
 banded_sw_full.launches = 0
+
+
+def banded_sw_scores_torch(reads, read_lens, refs_padded, *, band, match,
+                           mismatch, gap_open, gap_extend):
+    """Plain PyTorch version of the score-only kernel on prepared inputs
+    (see banded_sw_full_torch). Returns (3, N) int32 rows [score, end_read,
+    end_ref]. Pairs with no read row are written as the constant
+    no-alignment column (0, 0, -band/2) without running."""
+    n, q_max = reads.shape
+    half = band // 2
+    dev = reads.device
+    i32 = torch.int32
+    out = torch.tensor([0, 0, -half], dtype=i32,
+                       device=dev)[:, None].repeat(1, n)
+    rlen_all = read_lens.clamp(0, q_max)
+    act = torch.nonzero(rlen_all > 0).flatten()
+    if act.numel() == 0:
+        return out
+    R = reads[act].to(i32)
+    T = refs_padded[act].to(i32)
+    rlen = rlen_all[act][:, None]
+    lane = torch.arange(band, dtype=i32, device=dev)[None, :]
+    z = torch.zeros((act.numel(), band), dtype=i32, device=dev)
+    h_prev, e_prev, best_v, best_i_v = z, z, z, z
+    for i in range(int(rlen.max())):
+        read_col = R[:, i:i + 1]
+        ref_slice = T[:, i:i + band]
+        is_ambig = (read_col == 4) | (ref_slice >= 4)
+        sub = torch.where(is_ambig, 0, torch.where(
+            read_col == ref_slice, match, -mismatch).to(i32))
+        dead = ref_slice == 5
+
+        m = h_prev + sub
+        e = torch.maximum(_shift_left1(h_prev, NEG) - gap_open,
+                          _shift_left1(e_prev, NEG) - gap_extend)
+        h_nod = torch.where(dead, NEG, torch.maximum(m, e))
+
+        # F closed form: exclusive prefix-max of g, floored at NEG
+        g = h_nod - gap_open + lane * gap_extend
+        y = _shift_right(torch.cummax(g, dim=1).values, 1, NEG).clamp(min=NEG)
+        f = y - (lane - 1) * gap_extend
+        h = torch.clamp(torch.maximum(h_nod, f), min=0)
+        h = torch.where(dead, 0, h)
+
+        active = i < rlen
+        h_prev = torch.where(active, h, h_prev)
+        # E is not zeroed on dead slots here (the full-stats step does)
+        e_prev = torch.where(active, torch.clamp(e, min=0), e_prev)
+        improved = (h_prev > best_v) & active
+        best_v = torch.where(improved, h_prev, best_v)
+        best_i_v = torch.where(improved, i, best_i_v)
+
+    # (max score, min row, min slot)
+    best = best_v.amax(dim=1, keepdim=True)
+    at_s = best_v == best
+    best_i = torch.where(at_s, best_i_v, 2 ** 30).amin(dim=1, keepdim=True)
+    at_si = at_s & (best_i_v == best_i)
+    best_k = torch.where(at_si, lane, band).amin(dim=1, keepdim=True)
+    none = best <= 0
+    best = torch.where(none, 0, best)
+    best_i = torch.where(none, 0, best_i)
+    best_k = torch.where(none, 0, best_k)
+    out[:, act] = torch.cat([best, best_i, best_i + best_k - half],
+                            dim=1).to(i32).T
+    return out
+
+
+def _sw_scores_cuda(reads, read_lens, refs_padded, *, band, match, mismatch,
+                    gap_open, gap_extend):
+    lib = build.load()
+    n, q_max = reads.shape
+    out = torch.empty((3, n), dtype=torch.int32, device=reads.device)
+    device, stream = build.launch_args(reads)
+    build.check(lib.mpn_sw_scores(
+        reads.data_ptr(), read_lens.data_ptr(), refs_padded.data_ptr(),
+        out.data_ptr(), n, q_max, refs_padded.shape[1], band, match,
+        mismatch, gap_open, gap_extend, device, stream), "mpn_sw_scores")
+    build.count_launch(banded_sw_scores)
+    return out
+
+
+def banded_sw_scores(reads, read_lens, refs, ref_lens, *, band: int = 128,
+                     match: int = 2, mismatch: int = 4, gap_open: int = 4,
+                     gap_extend: int = 2):
+    """Batched banded local SW, score only. Arguments as banded_sw_full, with
+    no limit on the window sizes below 2**22 rows. Returns (scores, end_read,
+    end_ref), three (N,) int32 tensors, bit-equal to the TPU package's
+    banded_sw_scores. A pair with no positive cell reports (0, 0, -band/2).
+
+    The band is centered on the main diagonal: at read position i it covers
+    ref positions [i - band/2, i + band/2). The TPU wrapper's batch_tile has
+    no counterpart: one thread block serves one pair."""
+    dev = _same_device(reads, read_lens, refs, ref_lens)
+    if reads.shape[1] + 128 >= 2 ** 22:
+        raise ValueError("score-only kernel takes reads below 2**22 rows")
+    reads, read_lens, refs_padded = _prepare(reads, read_lens, refs,
+                                             ref_lens, band)
+    kw = dict(band=band, match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_extend=gap_extend)
+    if dev.type == "cpu":
+        out = banded_sw_scores_torch(reads, read_lens, refs_padded, **kw)
+    elif dev.type == "cuda":
+        out = _sw_scores_cuda(reads, read_lens, refs_padded, **kw)
+    else:
+        raise ValueError(f"banded_sw_scores: unsupported device {dev}")
+    return out[0], out[1], out[2]
+
+
+banded_sw_scores.launches = 0

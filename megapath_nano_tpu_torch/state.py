@@ -1,4 +1,7 @@
-"""Device state of the map path: numpy planes -> torch tensors on a device.
+"""State of the map path carried across: the host index
+(`index_from_numpy`) and the device planes (`device_planes_from_numpy`).
+There are no weights on the map path; the minimizer index and the 4-bit
+packed reference are its state.
 
 The TPU package's MinimizerAligner keeps these arrays on its device (built
 on the host from the MinimizerIndex):
@@ -27,6 +30,8 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from megapath_nano_tpu_torch.index.minimizer import MinimizerIndex
 
 # name -> (dtype the TPU aligner holds, dtype of the port's tensor)
 PLANES = {
@@ -62,3 +67,21 @@ def device_planes_from_numpy(arrays: Mapping[str, np.ndarray], *,
         out[name] = torch.from_numpy(host).to(device=device,
                                               dtype=torch_dtype)
     return out
+
+
+def index_from_numpy(src) -> MinimizerIndex:
+    """Build the port's MinimizerIndex from the arrays of any object with the
+    same fields (the TPU package's MinimizerIndex, or a loaded archive),
+    field for field, without rebuilding. The arrays are shared, not
+    copied; the lazily built lookup LUT is left to be rebuilt."""
+    def arr(x, dtype):
+        return None if x is None else np.ascontiguousarray(x, dtype)
+
+    return MinimizerIndex(
+        k=int(src.k), w=int(src.w),
+        keys=arr(src.keys, np.uint64),
+        positions=arr(src.positions, np.uint64),
+        seq_lengths=arr(src.seq_lengths, np.int64),
+        seq_names=list(src.seq_names),
+        seq_data=arr(src.seq_data, np.int8),
+        seq_offsets=arr(src.seq_offsets, np.int64))

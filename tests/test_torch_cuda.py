@@ -41,10 +41,31 @@ def test_sw_full_kernel_matches_plain(cuda, band):
     assert torch.equal(got.cpu(), ref.cpu())
 
 
-def test_chain_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(0)
-    n, a = 2000, 32
-    t = np.sort(rng.integers(0, 3000, (n, a)), axis=1).astype(np.int32)
+@pytest.mark.parametrize("band", [128, 256, 512])
+def test_sw_scores_kernel_matches_plain(cuda, band):
+    rng = np.random.default_rng(band + 1)
+    n, q, t = 67, 700, 900
+    ta = rng.integers(0, 4, (n, t)).astype(np.int8)
+    ra = ta[:, 10: 10 + q].copy()
+    flip = rng.random((n, q)) < 0.06
+    ra[flip] = rng.integers(0, 5, int(flip.sum()))
+    rl = rng.integers(0, q + 1, n).astype(np.int32)
+    tl = rng.integers(0, t + 1, n).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda) for x in (ra, rl, ta, tl)]
+    before = sw.banded_sw_scores.launches
+    got = torch.stack(sw.banded_sw_scores(*args, band=band, **PARAMS))
+    assert sw.banded_sw_scores.launches == before + 1
+    ref = sw.banded_sw_scores_torch(*sw._prepare(*args, band), band=band,
+                                    **PARAMS)
+    assert torch.equal(got.cpu(), ref.cpu())
+
+
+@pytest.mark.parametrize("a", [32, 256])
+def test_chain_kernel_matches_plain(cuda, a):
+    rng = np.random.default_rng(a)
+    n = 2000
+    t = np.sort(rng.integers(0, 3000 * a // 32, (n, a)), axis=1).astype(
+        np.int32)
     q = (t + rng.integers(-30, 30, (n, a))).clip(0).astype(np.int32)
     cnt = rng.integers(0, a + 1, n).astype(np.int32)
     args = [torch.from_numpy(x).to(cuda) for x in (q, t, cnt)]

@@ -1,9 +1,11 @@
-"""The port imports no JAX: importing megapath_nano_tpu_torch and every one
-of its submodules leaves jax out of sys.modules, and no source file of the
-package imports jax or mentions pallas."""
+"""The port stands alone: importing megapath_nano_tpu_torch and every one of
+its submodules leaves jax and the TPU package (megapath_nano_tpu) out of
+sys.modules, and no source file of the package, nor chip_smoke.py, imports
+either or mentions pallas."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -25,12 +27,20 @@ def test_package_imports_without_jax():
     assert {"megapath_nano_tpu_torch.align.pipeline",
             "megapath_nano_tpu_torch.kernels.sw",
             "megapath_nano_tpu_torch.kernels.chain",
-            "megapath_nano_tpu_torch.state"} <= set(names)
+            "megapath_nano_tpu_torch.state",
+            "megapath_nano_tpu_torch.native.lib",
+            "megapath_nano_tpu_torch.native.banded",
+            "megapath_nano_tpu_torch.index.minimizer",
+            "megapath_nano_tpu_torch.align.anchors",
+            "megapath_nano_tpu_torch.align.records",
+            "megapath_nano_tpu_torch.report.samout",
+            "megapath_nano_tpu_torch.utils.dna"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+            "             if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'megapath_nano_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -40,16 +50,39 @@ def test_package_imports_without_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG_DIR):
+        paths += [os.path.join(root, f) for f in files
+                  if f.endswith((".py", ".cu", ".cuh"))]
+    return paths
+
+
 def test_sources_do_not_mention_jax_or_pallas():
     offenders = []
-    for root, _dirs, files in os.walk(PKG_DIR):
-        for f in files:
-            if not f.endswith((".py", ".cu", ".cuh")):
-                continue
-            path = os.path.join(root, f)
-            with open(path) as fh:
-                text = fh.read()
-            for word in ("import jax", "from jax", "pallas"):
-                if word in text:
-                    offenders.append((os.path.relpath(path, REPO), word))
+    for path in _port_sources():
+        with open(path) as fh:
+            text = fh.read()
+        for word in ("import jax", "from jax", "pallas"):
+            if word in text:
+                offenders.append((os.path.relpath(path, REPO), word))
+    assert not offenders, offenders
+
+
+def test_sources_do_not_import_the_tpu_package():
+    # `import megapath_nano_tpu`, `from megapath_nano_tpu.x import y`,
+    # importlib strings: any of them, but not megapath_nano_tpu_torch
+    pat = re.compile(r"(?:\bimport|\bfrom|import_module\(\s*[\"'])\s*"
+                     r"megapath_nano_tpu(?![_\w])")
+    assert pat.search("from megapath_nano_tpu.utils import dna")
+    assert pat.search("import megapath_nano_tpu")
+    assert not pat.search("from megapath_nano_tpu_torch.utils import dna")
+    paths = _port_sources()
+    assert len(paths) > 15
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            for no, line in enumerate(fh, 1):
+                if pat.search(line):
+                    offenders.append((os.path.relpath(path, REPO), no))
     assert not offenders, offenders

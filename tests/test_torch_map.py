@@ -16,7 +16,8 @@ from megapath_nano_tpu.align.records import ALIGN_DTYPE
 from megapath_nano_tpu.index.minimizer import MinimizerIndex
 from megapath_nano_tpu.utils.dna import mutate, random_sequence, revcomp
 from megapath_nano_tpu_torch.align import pipeline as tp
-from megapath_nano_tpu_torch.state import device_planes_from_numpy
+from megapath_nano_tpu_torch.state import (device_planes_from_numpy,
+                                           index_from_numpy)
 
 TINY = staticmethod(lambda slice_n, read_max, occ=0.0: (64, 64, 64))
 
@@ -64,7 +65,7 @@ def test_map_reads_alignlist_equal(world, monkeypatch):
         monkeypatch.setattr(jp.MinimizerAligner, "_devseed_caps", TINY)
         monkeypatch.setattr(tp.MinimizerAligner, "_devseed_caps", TINY)
     jal = jp.MinimizerAligner(index, params=jp.AlignParams(backend="jnp"))
-    tal = tp.MinimizerAligner(index, params=tp.AlignParams(), device="cpu")
+    tal = tp.MinimizerAligner(index_from_numpy(index), params=tp.AlignParams(), device="cpu")
     ref = jal.map_reads(reads, emit_cigars=False, slice_size=slice_size)
     got = tal.map_reads(reads, emit_cigars=False, slice_size=slice_size)
     _assert_same(got, ref)
@@ -90,7 +91,7 @@ def test_state_carry_over_equal():
         {"seq4": jal._seq_data_dev, "seq_offsets": off, "seq_lengths": lens,
          "keys32": keys32, "pos_t": pos_t, "ss16": ss16, "lut2": lut2,
          "runcnt": runcnt}, device="cpu")
-    tal = tp.MinimizerAligner(index, device="cpu")
+    tal = tp.MinimizerAligner(index_from_numpy(index), device="cpu")
     tal.map_reads(reads, emit_cigars=False)
     assert set(carried) == set(tal._planes)
     for name, t in carried.items():
@@ -100,13 +101,20 @@ def test_state_carry_over_equal():
     assert carried["ss16"].dtype == torch.int32      # widened on device
 
 
-def test_unported_paths_raise():
+def test_device_defaults_to_the_card():
+    """No `device` argument means the GPU: with no CUDA device the
+    constructor raises and names device="cpu"; it never carries on on the
+    CPU."""
     index, reads = _world(5, n_reads=4)
-    tal = tp.MinimizerAligner(index, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tal.map_reads(reads)                          # emit_cigars=True
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tp.MinimizerAligner(index, params=tp.AlignParams(fused=False),
-                            device="cpu").map_reads(reads, emit_cigars=False)
-    with pytest.raises(TypeError):
-        tp.MinimizerAligner(index)                    # no implicit device
+    if torch.cuda.is_available():
+        assert tp.MinimizerAligner(index_from_numpy(index)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tp.MinimizerAligner(index_from_numpy(index))
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tp.MinimizerAligner(index_from_numpy(index), device="cuda:0")
+    tal = tp.MinimizerAligner(index_from_numpy(index), device="cpu")
+    assert tal.device.type == "cpu"
+    # nothing of map_reads is unported: default arguments emit CIGARs
+    res = tal.map_reads(reads)
+    assert len(res) >= 3 and res.cigar_map

@@ -18,6 +18,7 @@ from megapath_nano_tpu.utils.dna import mutate, random_sequence, revcomp
 from megapath_nano_tpu_torch.align import pipeline as tp
 from megapath_nano_tpu_torch.align.device_seed import NO_RID
 from megapath_nano_tpu_torch.kernels.sw import banded_sw_full
+from megapath_nano_tpu_torch.state import index_from_numpy
 
 
 @pytest.fixture(autouse=True)
@@ -51,7 +52,7 @@ def _world(seed=5, n_genomes=4, glen=25000, n_reads=96, read_len=700):
 def _aligners():
     index, reads = _world()
     jal = jp.MinimizerAligner(index, params=jp.AlignParams(backend="jnp"))
-    tal = tp.MinimizerAligner(index, params=tp.AlignParams(), device="cpu")
+    tal = tp.MinimizerAligner(index_from_numpy(index), params=tp.AlignParams(), device="cpu")
     return index, reads, jal, tal
 
 
