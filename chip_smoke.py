@@ -13,20 +13,28 @@ failure:
    versions, the nvcc and g++ build times.
 2. Kernels against their plain PyTorch versions on the card, bit-equal:
    banded_sw_full at band 128 on 8192 pairs of 1 kb (the PAF path's shape),
-   at band 256 on 1024 pairs of 4 kb, and on edge cases; banded_sw_scores
-   at 1024 x 1 kb band 128 (the CIGAR path's shape), 1024 x 4 kb band 256,
-   128 x 16 kb band 512 and on edge cases; chain_and_extents on 16384
-   groups x 32 anchors, 4096 x 256, and on groups that read every entry of
-   the gap-cost table. Times from CUDA events after a warm-up; beside each,
-   the least time the card could take for the same inputs (see `Bound`).
+   at band 256 on 1024 pairs of 4 kb, at band 512 on 256 pairs of 8 kb;
+   banded_sw_scores at 1024 x 1 kb band 128 (the CIGAR path's shape),
+   1024 x 4 kb band 256, 128 x 16 kb band 512 and 8 x 40 kb band 512 (the
+   40 kb map's call); both on edge cases, on a ragged batch (1027 pairs,
+   read lengths 0..1024), on a batch shaped like the fused PAF launch
+   (8192 pairs, most of them with read length 0) and on a tie-heavy batch
+   (homopolymers, N stretches, refs of 0..3 bases). Every extension batch
+   goes through the wrapper and through both forms of its kernel (a warp
+   per pair, a block per pair), and the two forms are timed in turn:
+   block, warp, warp, block. chain_and_extents on 16384 groups x 32
+   anchors, 4096 x 256, and on groups that read every entry of the
+   gap-cost table. Times from CUDA events after a warm-up; beside each, the
+   least time the card could take for the same inputs (see `Bound`).
 3. The PAF-mode map at a real size: 32 random genomes of 4 Mbp (128 Mbp,
    k=15 w=10 index), 32768 simulated 1 kb reads at 6% error (sub:ins:del
    2:1:1, half reverse-complemented), mapped with
    map_reads(slice_size=4096, emit_cigars=False) after a warm-up on the
    same reads. At least 90% of reads must map and 95% of those land on
    their true genome and strand within 150 bases; sw_full and chain must
-   have been launched. Then 2048 reads of 4 kb, so that band 256 runs on
-   the path.
+   have been launched. One more map runs under torch.profiler (device busy
+   time, idle share, kernel time by name). Then 2048 reads of 4 kb, so that
+   band 256 runs on the path.
 4. The same aligner on the card and on the CPU (plain versions) on 512
    reads in PAF mode: all 18 AlignList fields equal.
 5. The CIGAR-mode map on the same index: 8192 of those 1 kb reads with
@@ -45,6 +53,13 @@ failure:
 
 The last line of output is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record.
+
+    python3 chip_smoke.py kernels
+
+runs phases 1 and 2 only (a quick check after a change to a kernel) and
+ends with a {"kernel_checks": [...]} line: the same per-kernel records
+without the launch counts (no map ran, so there is none to report), and
+without the "ok" line.
 """
 
 from __future__ import annotations
@@ -76,26 +91,45 @@ PAF_FIELDS = ("read_id", "read_from", "read_to", "strand", "sequence_id",
 
 # Bound: the least time an H100 SXM could take for a call, the larger of
 #   bytes / 3.35e12 B/s   (each input read once, each output written once)
-#   ops / 16.75e12 op/s   (int32 operations outside the tensor cores: a
-#       Hopper SM has 64 INT32 lanes beside 128 FP32 lanes, and the
-#       published 67 TFLOP/s of float32 counts a fused multiply-add on each
-#       FP32 lane as two, so the int32 rate is 67e12 / 4).
-# Operations are counted from the plain version's row step, one per
-# elementwise integer op on a cell, with the F chain's scan at the one
-# step per cell that a sequential scan needs (the plain versions spend
-# log2(band)); cells are what these inputs need: rows stop at each pair's
-# own read length.
+#   ops / 16.75e12 op/s   (operations that only the SM's integer pipe can do).
+# The rate: an sm_90 SM retires 64 results a clock of a 32-bit integer
+# compare, minimum or maximum (NVIDIA's CUDA C++ programming manual, table
+# "Throughput of Native Arithmetic Instructions", compute capability 9.0);
+# 132 SMs at the 1.98 GHz boost clock give 16.75e12 a second, also the data
+# sheet's 67 TFLOP/s of float32 (128 lanes, a fused multiply-add counted
+# twice) over 4. Hopper's DPX instructions (a fused add-maximum, a maximum
+# of three, a maximum that reports its winner: __viaddmax_s32, __vimax3_s32,
+# __vibmax_s32) are taken to run at that same rate, one instruction a
+# result; NVIDIA publishes no separate figure for them.
+# The operations: those of the least program for the function, not of the
+# plain version and not of the kernels: a sequential F chain (one step a
+# cell), every add-maximum pair and every maximum of three as one fused
+# instruction, one compare for all the selects it decides. Counted are only
+# compares, maxima (fused ones too) and selects. Additions are left out:
+# an integer add can also go as a multiply-add down the floating-point
+# pipe, so it does not bound the integer pipe. On these assumptions no
+# kernel beats the bound on this card; cells are what these inputs need
+# (rows stop at each pair's own read length).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
-# banded_sw_scores_torch: ambig 3, sub 3, dead 1, diagonal 1, E 3, Hnod 2,
-# g 3, scan 2, f 2, H 3, active 1 + 2 selects, E clamp 1, best 2 + 2 selects
-SW_SCORES_OPS_PER_CELL = 31
-# banded_sw_full_torch: the same plus the companions P and B through the
-# diagonal, E, the tuple scan (compare + 3 selects) and the H selection
-SW_FULL_OPS_PER_CELL = 71
-# chain_and_extents_torch, per (anchor, predecessor) pair: dq, dt, dd 4,
-# mask 10, alpha 2, cost 3, candidate 3, max 1, oldest-wins argmax 3
-CHAIN_OPS_PER_PAIR = 26
+# banded_sw_scores, a cell: substitution score 1 (a select on the codes'
+# equality, N and dead codes folded into the compare), E 1 (add-maximum of
+# E_up - e and H_up - o, its floor at 0 fused), Hnod 1 (add-maximum of
+# H_diag + sub and E), dead cell 1 (select), F 1 (add-maximum), H 1
+# (maximum of Hnod, F and 0), running best 1 (a maximum over the row's
+# cells; the lane's compare and selects are shared by its slots)
+SW_SCORES_OPS_PER_CELL = 7
+# banded_sw_full, a cell: the same 7, and for the companions P and B:
+# diagonal 4 (fresh compare, select of the increment, P and B selects), E 2,
+# Hnod 2 and F 2 (P and B selects on the maximum's own winner flag), H 3 (the
+# maximum of three splits into a maximum with winner flag and a floor, P and
+# B selects), H > 0 2 (P and B selects)
+SW_FULL_OPS_PER_CELL = 22
+# chain_and_extents, per (anchor, predecessor) pair: |dq - dt| 1, the range
+# tests 3 (unsigned compares of dq - 1, dt - 1 and dd, chained through their
+# predicates with the live flag), alpha 1 (minimum of three), the masking
+# select 1, the maximum with winner flag 1, the select of its index 1
+CHAIN_OPS_PER_PAIR = 8
 
 
 def log(*args):
@@ -211,10 +245,7 @@ def phase_device():
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(nvidia_smi_line())
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"device {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
@@ -258,18 +289,8 @@ def sw_batch(rng, n, q_len, t_len, err):
     return ra, rl, ta, tl
 
 
-def sw_edge_batch(rng):
-    t = rng.integers(0, 4, 150).astype(np.int8)
-    pairs = [(t[:137].copy(), t), (np.zeros(0, np.int8), t),
-             (np.full(90, 4, np.int8), t[:120]),
-             (rng.integers(0, 4, 173).astype(np.int8), t[:60]),
-             (np.zeros(70, np.int8), np.ones(80, np.int8)),
-             (t[:50].copy(), np.full(64, 4, np.int8)),
-             # a deletion right at the ref's last bases, then the read runs
-             # on past the ref: E next to and on the dead slots is carried
-             (np.concatenate([t[10:100], t[106:120],
-                              rng.integers(0, 4, 60).astype(np.int8)]),
-              t[:120])]
+def pad_pairs(pairs):
+    """(reads, rlens, refs, tlens) from a list of (read, ref) code arrays."""
     q_max = max(len(r) for r, _ in pairs)
     t_max = max(len(x) for _, x in pairs)
     ra = np.full((len(pairs), q_max), 4, np.int8)
@@ -282,9 +303,82 @@ def sw_edge_batch(rng):
     return ra, rl, ta, tl
 
 
-def check_sw(kind, name, arrays, band, plain_iters=1, kernel_iters=5):
-    """Hold one banded extension wrapper (kind "full" or "scores") to its
-    plain version on the card and time both."""
+def sw_edge_batch(rng):
+    t = rng.integers(0, 4, 150).astype(np.int8)
+    return pad_pairs([
+        (t[:137].copy(), t), (np.zeros(0, np.int8), t),
+        (np.full(90, 4, np.int8), t[:120]),
+        (rng.integers(0, 4, 173).astype(np.int8), t[:60]),
+        (np.zeros(70, np.int8), np.ones(80, np.int8)),
+        (t[:50].copy(), np.full(64, 4, np.int8)),
+        # a deletion right at the ref's last bases, then the read runs
+        # on past the ref: E next to and on the dead slots is carried
+        (np.concatenate([t[10:100], t[106:120],
+                         rng.integers(0, 4, 60).astype(np.int8)]),
+         t[:120])])
+
+
+def sw_tie_batch(rng):
+    """Pairs whose DP is full of equal values, so that the tie rules decide:
+    homopolymers and short-period repeats (every diagonal scores alike, an
+    indel can sit anywhere in the run), N stretches (zero substitution
+    score), refs of 0..3 bases and refs shorter than the band (dead slots,
+    whose g lies below, at and above NEG at k = 0, 1, 2 and up)."""
+    def rep(unit, n):
+        return np.tile(np.array(unit, np.int8), n // len(unit) + 1)[:n]
+
+    pairs = []
+    for unit in ([0], [0, 1], [0, 1, 2], [3, 3, 1]):
+        for _ in range(4):
+            q, t = (int(x) for x in rng.integers(60, 300, 2))
+            ref = rep(unit, t)
+            pairs.append((rep(unit, q), ref))
+            cut = int(rng.integers(10, q - 10))
+            pairs.append((np.concatenate([rep(unit, q)[:cut],
+                                          rep(unit, q)[cut + 5:]]), ref))
+            with_n = rep(unit, q)
+            with_n[cut: cut + int(rng.integers(1, 40))] = 4
+            pairs.append((with_n, ref))
+            ref_n = ref.copy()
+            ref_n[t // 3: t // 3 + int(rng.integers(1, 40))] = 4
+            pairs.append((rep(unit, q), ref_n))
+    for t in (0, 1, 2, 3, 17, 63, 64, 65):
+        pairs.append((rep([0], 200), rep([0], t)))
+        pairs.append((rep([2, 1], 150), rep([2, 1], t)))
+    pairs.append((np.full(120, 4, np.int8), rep([1], 200)))
+    pairs.append((rep([1], 120), np.full(200, 4, np.int8)))
+    pairs.append((np.zeros(0, np.int8), rep([1], 50)))
+    return pad_pairs(pairs)
+
+
+def sw_ragged_batch(rng, n=1027, q_len=1024, t_len=1280):
+    """n (no multiple of the pairs a block holds) pairs whose read lengths
+    run from 0 to q_len and whose ref lengths run from 0 to t_len, in no
+    order: neighbours in a block stop at different rows."""
+    ra, _, ta, _ = sw_batch(rng, n, q_len, t_len, 0.06)
+    rl = rng.integers(0, q_len + 1, n).astype(np.int32)
+    tl = rng.integers(0, t_len + 1, n).astype(np.int32)
+    rl[:8] = (0, q_len, 1, 0, 2, 3, q_len - 1, 5)
+    return ra, rl, ta, tl
+
+
+def sw_fused_shape_batch(arrays, rng):
+    """The batch as the fused PAF launch passes it: the static group cap of
+    pairs, the kept ones compacted to the front or scattered (no cap), all
+    others with read and ref length 0."""
+    ra, rl, ta, tl = arrays
+    n = len(rl)
+    live = np.zeros(n, bool)
+    live[: n // 4] = True
+    live[n // 2:] = rng.random(n - n // 2) < 0.1
+    return ra, np.where(live, rl, 0).astype(np.int32), ta, \
+        np.where(live, tl, 0).astype(np.int32)
+
+
+def check_sw(kind, name, arrays, band, kernel_iters=5):
+    """Hold one banded extension wrapper (kind "full" or "scores"), and both
+    forms of its kernel, to the plain version on the card; time the wrapper,
+    the plain version (one run) and the two forms in turn."""
     import torch
 
     from megapath_nano_tpu_torch.kernels import sw
@@ -296,6 +390,10 @@ def check_sw(kind, name, arrays, band, plain_iters=1, kernel_iters=5):
         def kernel():
             return sw.banded_sw_full(ra, rl, ta, tl, band=band, **SW_PARAMS)
 
+        def form(which):
+            return lambda: sw._sw_full_cuda(ra, rl, ta, tl, band=band,
+                                            form=which, **SW_PARAMS)
+
         def plain():
             return sw.banded_sw_full_torch(reads, rlens, refs_p, band=band,
                                            **SW_PARAMS)
@@ -305,20 +403,41 @@ def check_sw(kind, name, arrays, band, plain_iters=1, kernel_iters=5):
             return torch.stack(sw.banded_sw_scores(ra, rl, ta, tl, band=band,
                                                    **SW_PARAMS))
 
+        def form(which):
+            return lambda: sw._sw_scores_cuda(ra, rl, ta, tl, band=band,
+                                              form=which, **SW_PARAMS)
+
         def plain():
             return sw.banded_sw_scores_torch(reads, rlens, refs_p, band=band,
                                              **SW_PARAMS)
         bnd = sw_bound(arrays, band, SW_SCORES_OPS_PER_CELL, 3)
-    kern, ref = kernel(), plain()
-    torch.cuda.synchronize()
-    err = require_equal(name, kern, ref)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(ref=plain()), 1)
+    err = 0
+    for label, fn in (("", kernel), (" [warp per pair]", form(sw.FORM_WARP)),
+                      (" [block per pair]", form(sw.FORM_BLOCK))):
+        got = fn()
+        torch.cuda.synchronize()
+        err = max(err, require_equal(name + label, got, out["ref"]))
     ms = cuda_ms(kernel, kernel_iters)
-    plain_ms = cuda_ms(plain, plain_iters)
+    turns = [cuda_ms(form(which), kernel_iters) for which in
+             (sw.FORM_BLOCK, sw.FORM_WARP, sw.FORM_WARP, sw.FORM_BLOCK)]
+    block_ms, warp_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     n, q = arrays[0].shape
-    log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+    rows = int(np.minimum(arrays[1], q).astype(np.int64).sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"  {name}: wrapper {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bnd[0]:.4f} ms by {bnd[1]} ({n} pairs x {q} rows, band {band}; "
-        f"{n * q * band / ms / 1e6:.2f} Gcell/s kernel)")
-    return kernel_record(err, ms, plain_ms, bnd)
+        f"{rows * band / ms / 1e6:.2f} Gcell/s, "
+        f"{rows / ms / sms / 1e3:.3f} Mrow/s per SM)")
+    log(f"  {name}: kernel alone, in turn block, warp, warp, block: "
+        + ", ".join(f"{t:.3f}" for t in turns)
+        + f" ms; block per pair {block_ms:.3f}, warp per pair {warp_ms:.3f}")
+    rec = kernel_record(err, ms, plain_ms, bnd)
+    # prev_ms: the block-per-pair form, which was the whole kernel before
+    # the warp-per-pair form existed
+    rec.update(prev_ms=block_ms, warp_ms=warp_ms)
+    return rec
 
 
 def chain_groups(rng, n, a=32):
@@ -382,23 +501,42 @@ def phase_kernels(rng):
     """Returns {kernel name: record at the shape its main path gives it};
     the record's max_abs_err covers every shape checked."""
     log("phase 2: kernels vs plain versions on the card")
-    full = check_sw("full", "sw_full band 128, 8192 x 1 kb",
-                    sw_batch(rng, 8192, 1024, 1280, 0.06), 128)
+    paf_shape = sw_batch(rng, 8192, 1024, 1280, 0.06)
+    full = check_sw("full", "sw_full band 128, 8192 x 1 kb", paf_shape, 128)
     scores = check_sw("scores", "sw_scores band 128, 1024 x 1 kb",
                       sw_batch(rng, 1024, 1024, 2048, 0.06), 128)
     edge = sw_edge_batch(rng)
+    ties = sw_tie_batch(rng)
+    ragged = sw_ragged_batch(rng)
+    fused = sw_fused_shape_batch(paf_shape, rng)
     others = {
         "banded_sw_full": [
             check_sw("full", "sw_full band 256, 1024 x 4 kb",
                      sw_batch(rng, 1024, 4096, 4352, 0.06), 256),
-            check_sw("full", "sw_full edge cases", edge, 128)],
+            check_sw("full", "sw_full band 512, 256 x 8 kb",
+                     sw_batch(rng, 256, 8192, 8704, 0.06), 512,
+                     kernel_iters=3),
+            check_sw("full", "sw_full edge cases", edge, 128),
+            check_sw("full", f"sw_full ties ({len(ties[1])} pairs)", ties,
+                     128),
+            check_sw("full", "sw_full ragged, 1027 pairs", ragged, 128),
+            check_sw("full", "sw_full fused-launch shape, 8192 pairs", fused,
+                     128)],
         "banded_sw_scores": [
             check_sw("scores", "sw_scores band 256, 1024 x 4 kb",
                      sw_batch(rng, 1024, 4096, 8192, 0.06), 256),
             check_sw("scores", "sw_scores band 512, 128 x 16 kb",
                      sw_batch(rng, 128, 16384, 32768, 0.06), 512,
                      kernel_iters=3),
-            check_sw("scores", "sw_scores edge cases (7 pairs)", edge, 128)],
+            check_sw("scores", "sw_scores band 512, 8 x 40 kb",
+                     sw_batch(rng, 8, 40960, 65536, 0.06), 512,
+                     kernel_iters=2),
+            check_sw("scores", "sw_scores edge cases (7 pairs)", edge, 128),
+            check_sw("scores", f"sw_scores ties ({len(ties[1])} pairs)",
+                     ties, 128),
+            check_sw("scores", "sw_scores ragged, 1027 pairs", ragged, 128),
+            check_sw("scores", "sw_scores fused-launch shape, 8192 pairs",
+                     fused, 128)],
     }
     chain = check_chain("chain 16384 x 32", chain_groups(rng, 16384))
     others["chain_and_extents"] = [
@@ -523,13 +661,62 @@ def stage_breakdown(aligner, reads):
     return out
 
 
+def profile_map(aligner, reads):
+    """One more PAF-mode map under torch.profiler: the device's busy time
+    (union of kernel and copy intervals), its idle share of the wall, and
+    the kernel time by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):     # the first trace pays the tracer's
+        torch.zeros(1, device="cuda")  # start-up (seconds); not this one
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        aligner.map_reads(reads, slice_size=4096, emit_cigars=False)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        total, count = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (total + ev.time_range.elapsed_us() / 1e3,
+                            count + 1)
+    if not spans:
+        log("  profiler: no device events recorded; device time not "
+            "measured")
+        return
+    spans.sort()
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy_us += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy_ms = (busy_us + hi - lo) / 1e3
+    log(f"  profiler, one traced map of {len(reads)} reads: wall "
+        f"{wall_ms:.2f} ms, device events {len(spans)}, summed "
+        f"{sum(t for t, _ in by_name.values()):.2f} ms, busy (union) "
+        f"{busy_ms:.2f} ms, idle share {100 - 100 * busy_ms / wall_ms:.2f}%")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for rank, (name, (total, count)) in enumerate(ranked):
+        if rank < 8 or "sw_full" in name or "chain_kernel" in name:
+            log(f"    {total:9.3f} ms  {count:5d} x  {name[:90]}")
+
+
 def phase_map(rng):
     import torch
 
     from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
     from megapath_nano_tpu_torch.index.minimizer import MinimizerIndex
     from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
-    from megapath_nano_tpu_torch.kernels.sw import banded_sw_full
+    from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
+                                                    banded_sw_scores)
 
     log("phase 3: map path at 128 Mbp")
     t0 = time.perf_counter()
@@ -553,12 +740,15 @@ def phase_map(rng):
     torch.cuda.reset_peak_memory_stats()
     banded_sw_full.launches = 0
     chain_and_extents.launches = 0
+    banded_sw_scores.launches = 0
     t0 = time.perf_counter()
     res = aligner.map_reads(reads, slice_size=4096, emit_cigars=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"banded_sw_full": banded_sw_full.launches,
                 "chain_and_extents": chain_and_extents.launches}
+    all_launches = dict(launches,
+                        banded_sw_scores=banded_sw_scores.launches)
     log(f"  timed run: 32768 reads in {dt:.3f} s = "
         f"{32768 / dt:.1f} reads/s; launches {launches}; "
         f"overflow_stats {aligner.overflow_stats}; "
@@ -568,6 +758,7 @@ def phase_map(rng):
                              f"{launches}")
     check_accuracy(res, truth, "1 kb reads")
     stage_breakdown(aligner, reads[:4096])
+    profile_map(aligner, reads)
 
     long_reads, long_truth = simulate_reads(rng, genomes, 2048, 4000, 0.06)
     before = dict(sw=banded_sw_full.launches, chain=chain_and_extents.launches)
@@ -580,7 +771,7 @@ def phase_map(rng):
             chain_and_extents.launches == before["chain"]:
         raise AssertionError("4 kb map did not launch both kernels")
     check_accuracy(res4, long_truth, "4 kb reads")
-    return index, genomes, aligner, reads, truth, launches
+    return index, genomes, aligner, reads, truth, all_launches
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +955,7 @@ def phase_cigar_map(rng, index, genomes, aligner, reads, truth):
     dt = time.perf_counter() - t0
     launches = {"chain_and_extents": chain_and_extents.launches,
                 "banded_sw_scores": banded_sw_scores.launches}
+    all_launches = dict(launches, banded_sw_full=banded_sw_full.launches)
     log(f"  timed run: {n} reads, slice 4096, two threads, in {dt:.3f} s = "
         f"{n / dt:.1f} reads/s; launches {launches} (sw_full "
         f"{banded_sw_full.launches}); max_memory_allocated "
@@ -821,7 +1013,7 @@ def phase_cigar_map(rng, index, genomes, aligner, reads, truth):
     if banded_sw_scores.launches == before or paf40.cigar_map is not None:
         raise AssertionError("40 kb PAF map must go through sw_scores")
     require_same_records("40 kb, PAF mode vs CIGAR mode", paf40, res40)
-    return launches, n / dt
+    return all_launches, n / dt
 
 
 # ---------------------------------------------------------------------------
@@ -843,33 +1035,54 @@ def phase_cigar_card_vs_cpu(index, aligner, reads):
     log(f"  cigar_map equal ({len(gpu.cigar_map)} entries)")
 
 
-def main():
+def nvidia_smi_line():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def kernels_line(kstats, paf_launches=None, cigar_launches=None):
+    """The per-kernel records as one JSON line. With the launch counts of
+    the two maps: {"kernels": [...]}, each record with `launches` (the count
+    from the kernel's own main path: the PAF-mode map for sw_full and chain,
+    the CIGAR-mode map for sw_scores) and both paths' counts in
+    `launches_by_path`. Without them (no map ran): {"kernel_checks": [...]},
+    the records without those two keys."""
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        rec = {"name": name, "route": "cuda", "source": src, "replaces": rep}
+        if paf_launches is not None:
+            by_path = {"paf_map": paf_launches[name],
+                       "cigar_map": cigar_launches[name]}
+            rec["launches"] = by_path["paf_map"] or by_path["cigar_map"]
+        rec.update(kstats[name])
+        if paf_launches is not None:
+            rec["launches_by_path"] = by_path
+        kernels.append(rec)
+    return json.dumps({"kernels" if paf_launches is not None
+                       else "kernel_checks": kernels})
+
+
+def main(argv):
     import torch
 
+    if argv not in ([], ["kernels"]):
+        raise SystemExit("usage: chip_smoke.py [kernels]")
     rng = np.random.default_rng(2026)
     phase_device()
     kstats = phase_kernels(rng)
+    if argv:
+        log(nvidia_smi_line())
+        print(kernels_line(kstats), flush=True)
+        return
     index, genomes, aligner, reads, truth, paf_launches = phase_map(rng)
     phase_card_vs_cpu(index, aligner, reads)
     cigar_launches, _ = phase_cigar_map(rng, index, genomes, aligner, reads,
                                         truth)
     phase_cigar_card_vs_cpu(index, aligner, reads)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
-    kernels = []
-    for name, (src, rep) in KERNELS.items():
-        # launches: the count from the kernel's own main path (PAF-mode map
-        # for sw_full and chain, CIGAR-mode map for sw_scores); both paths'
-        # counts are in launches_by_path
-        by_path = {"paf_map": paf_launches.get(name, 0),
-                   "cigar_map": cigar_launches.get(name, 0)}
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep,
-                        "launches": by_path["paf_map"] or by_path["cigar_map"],
-                        **kstats[name], "launches_by_path": by_path})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    log(nvidia_smi_line())
+    print(kernels_line(kstats, paf_launches, cigar_launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -877,4 +1090,4 @@ def main():
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
-    main()
+    main(sys.argv[1:])

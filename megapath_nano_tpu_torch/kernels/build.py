@@ -97,9 +97,10 @@ def _compile(out: str) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mpn_sw_full.restype = i
-    lib.mpn_sw_full.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    sw_args = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    lib.mpn_sw_full.argtypes = sw_args
     lib.mpn_sw_scores.restype = i
-    lib.mpn_sw_scores.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.mpn_sw_scores.argtypes = sw_args
     lib.mpn_chain.restype = i
     lib.mpn_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
 

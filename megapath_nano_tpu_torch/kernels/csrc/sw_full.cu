@@ -6,45 +6,306 @@
 // (_row_step_full_factory), the same best-cell rule (_reduce_best) and the
 // same output columns (_full_outputs), bit for bit.
 //
-// Design: one thread block per (read, ref) pair, one thread per band slot.
-// Slot k of row i covers ref position j = i + k - band/2, so the diagonal
-// predecessor is the thread's own previous cell and the vertical one is slot
-// k+1's, exchanged through shared memory. The F chain (gap in ref) is a
-// block-wide exclusive tuple prefix-max (g, p, b) done as a Hillis-Steele
-// scan in log2(band) steps; the earlier slot wins ties and slots left of the
-// band read as (NEG, 0, 0), exactly as the TPU kernel's lane shifts fill
-// them. Each thread keeps its slot's running best; one block reduction by
-// (max score, min row, min slot) picks the result. Rows past the pair's
-// read length are exact no-ops in the reference (its `active` mask), so the
-// block stops at its own read length.
+// What bounds it on this card: the integer instruction rate and the latency
+// of one row, never bytes. A pair does q * band cells, each of at least 22
+// compares, maxima and selects on the integer pipe beside its additions
+// (about 70 elementwise operations as the plain version spells the step
+// out), against q + t + 36 bytes of traffic, and row i + 1 cannot
+// start before row i's F chain (a prefix scan across the whole band) is
+// done. So the design spends as few instructions a cell as it can, keeps
+// everything a row touches in registers, and leaves it to the other warps
+// of the SM to fill the latency of a row's shuffles.
 //
-// What bounds it: latency and synchronisation, not bytes. A pair does about
-// q * band cells of integer work against (q + t + 28) bytes of traffic, and
-// every row costs about log2(band) + 2 block barriers. Warp-level versions
-// without wgmma (several pairs per block, register-resident shifts with
-// shuffles instead of shared memory) are later work.
+// Warp-per-pair form (sw_full_warp_kernel<S>, band = 32 * S):
+//  - One warp walks one pair; lane l owns the S consecutive slots
+//    k = S*l .. S*l + S - 1. H, E and their companions P_H, B_H, P_E, B_E
+//    are 6 * S registers a lane. The warps of a block are independent pairs:
+//    the row loop has no __syncthreads and no DP state in shared memory, and
+//    each warp stops at its own read length (later rows are exact no-ops in
+//    the reference, under its `active` mask).
+//  - Slot k of row i covers ref position j = i + k - band/2, so the diagonal
+//    predecessor is the slot's own previous value and the vertical one is
+//    slot k + 1's: a register of the same lane for S - 1 slots, one
+//    __shfl_down_sync a plane (6 a row) for the lane's last slot. The slot
+//    right of the band reads as (NEG, NEG, 0, 0, 0, 0), the fills of the
+//    reference's lane shifts.
+//  - The F chain (gap in the ref) is an exclusive prefix scan of the tuple
+//    (g, p, b) under "keep the left operand when left.g >= right.g": the
+//    leftmost maximum, so the earliest opener wins ties. It is done in
+//    three parts: a sequential scan over the lane's own S slots, a 5-step
+//    shuffle scan over the 32 lane totals, and a second walk over the S
+//    slots that applies the incoming prefix. The operator is associative, so
+//    this order gives the reference's Hillis-Steele result. The element left
+//    of slot 0 is the fill (NEG, 0, 0); it wins against every real value
+//    <= NEG (dead slots), which the scan gets by seeding the exclusive
+//    prefix with it.
+//  - The running best is kept per lane, not per slot: slots are walked in
+//    ascending k and rows in ascending i with a strict >, which keeps (max
+//    score, min row, min slot) exactly. One shuffle reduction on a packed
+//    64-bit key picks the winner; its companions are taken before a
+//    no-alignment result is zeroed.
+//  - Read and ref codes travel as packed 32-bit words (sw_band.cuh): one
+//    broadcast word holds the read codes of four rows, S / 4 + 1 words hold a
+//    lane's ref codes for four rows, and both are loaded one block of four
+//    rows ahead, outside the row-to-row dependency.
+//  - The kernels take the windows as the caller has them and form the dead
+//    cells (sentinel 5 left of the window and past its length) themselves, so
+//    the CUDA route needs no padded copy of the refs.
+//
+// Block-per-pair form (sw_full_block_kernel): one thread a slot, the k + 1
+// exchange and a Hillis-Steele scan through shared memory with block
+// barriers. It serves the bands the warp form has no instantiation for
+// (mpn::has_warp_form in sw_band.cuh); where both exist the warp form is the
+// faster one at every batch size measured (times in PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sw_band.cuh"
+
 namespace {
 
-constexpr int kNeg = -(1 << 29);
+using mpn::kAllLanes;
+using mpn::kNeg;
+using mpn::kWarpsPerBlock;
+using mpn::Scoring;
 
-__global__ void sw_full_kernel(const int8_t* __restrict__ reads,
-                               const int32_t* __restrict__ rlens,
-                               const int8_t* __restrict__ refs,
-                               int32_t* __restrict__ out, int q_max, int width,
-                               int band, int match, int mismatch, int gap_open,
-                               int gap_extend) {
+// One element of the F chain's scan.
+struct Opener {
+  int g, p, b;
+};
+
+// Leftmost maximum: the earlier slot wins ties.
+__device__ __forceinline__ Opener keep_left(const Opener& l, const Opener& r) {
+  const bool t = l.g >= r.g;
+  Opener o;
+  o.g = t ? l.g : r.g;
+  o.p = t ? l.p : r.p;
+  o.b = t ? l.b : r.b;
+  return o;
+}
+
+// A lane's DP state. Slots 0 .. S - 1 are the lane's own; index S holds, for
+// one row, the old values of slot 0 of lane + 1.
+template <int S>
+struct FullLane {
+  int h[S + 1], e[S + 1], ph[S + 1], bh[S + 1], pe[S + 1], be[S + 1];
+  int best_v, best_ij, best_p, best_b;
+};
+
+// Row i of one pair: rc is the read code, tc_words hold the lane's S ref
+// codes, k0 = S * lane is the lane's first slot.
+template <int S>
+__device__ __forceinline__ void full_row(FullLane<S>& st, int i, int rc,
+                                         const uint32_t* tc_words, int lane,
+                                         int k0, const Scoring& sc) {
+  constexpr int band = 32 * S;
+  constexpr int half = band / 2;
+  const bool read_n = rc == 4;
+
+  // vertical predecessors of the lane's last slot: slot 0 of lane + 1
+  st.h[S] = __shfl_down_sync(kAllLanes, st.h[0], 1);
+  st.e[S] = __shfl_down_sync(kAllLanes, st.e[0], 1);
+  st.ph[S] = __shfl_down_sync(kAllLanes, st.ph[0], 1);
+  st.bh[S] = __shfl_down_sync(kAllLanes, st.bh[0], 1);
+  st.pe[S] = __shfl_down_sync(kAllLanes, st.pe[0], 1);
+  st.be[S] = __shfl_down_sync(kAllLanes, st.be[0], 1);
+  if (lane == 31) {  // right of the band: the reference's shift fills
+    st.h[S] = st.e[S] = kNeg;
+    st.ph[S] = st.bh[S] = st.pe[S] = st.be[S] = 0;
+  }
+  // B of a path that starts at slot j of this row is cur_b0 + j
+  const int cur_b0 = (i + band) * 32768 + (i + k0 - half + band);
+
+  // part 1: diagonal, E, Hnod; in place (slot j reads the old values of
+  // slots j and j + 1 only); the lane's total for the F chain
+  Opener total;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int k = k0 + j;
+    const int tc = mpn::code_at(tc_words, j);
+    const bool same = rc == tc;
+    const bool ambig = read_n || tc >= 4;
+    const int sub = ambig ? 0 : (same ? sc.match : -sc.mismatch);
+    const bool is_match = same && !ambig;
+    const bool dead = tc == 5;
+    const int cur_b = cur_b0 + j;
+
+    // diagonal: fresh start when the predecessor H is 0 (local stop)
+    const int m = st.h[j] + sub;
+    const bool fresh = st.h[j] == 0;
+    const int p_m = (fresh ? 0 : st.ph[j]) + (is_match ? (1 << 16) : 1);
+    const int b_m = fresh ? cur_b : st.bh[j];
+
+    const int eo = st.h[j + 1] - sc.gap_open;
+    const int ee = st.e[j + 1] - sc.gap_extend;
+    const int e_new = eo > ee ? eo : ee;
+    const bool take_ext = ee >= eo;  // extension wins ties
+    const int p_e_new = (take_ext ? st.pe[j + 1] : st.ph[j + 1]) + 1;
+    const int b_e_new = take_ext ? st.be[j + 1] : st.bh[j + 1];
+
+    const bool take_m = m >= e_new;  // diagonal wins ties
+    int h_nod = m > e_new ? m : e_new;
+    const int p_nod = take_m ? p_m : p_e_new;
+    const int b_nod = take_m ? b_m : b_e_new;
+    if (dead) h_nod = kNeg;  // a live cell has h_nod >= -mismatch
+
+    st.h[j] = h_nod;
+    st.ph[j] = p_nod;
+    st.bh[j] = b_nod;
+    st.e[j] = dead ? 0 : (e_new > 0 ? e_new : 0);
+    st.pe[j] = p_e_new;
+    st.be[j] = b_e_new;
+
+    Opener x;
+    x.g = h_nod - sc.gap_open + k * sc.gap_extend;
+    x.p = p_nod + (band - k);
+    x.b = b_nod;
+    total = j == 0 ? x : keep_left(total, x);
+  }
+
+  // part 2: inclusive scan of the lane totals, then the exclusive prefix,
+  // seeded with the fill left of slot 0
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    Opener o;
+    o.g = __shfl_up_sync(kAllLanes, total.g, s);
+    o.p = __shfl_up_sync(kAllLanes, total.p, s);
+    o.b = __shfl_up_sync(kAllLanes, total.b, s);
+    if (lane >= s) total = keep_left(o, total);
+  }
+  Opener run;
+  run.g = __shfl_up_sync(kAllLanes, total.g, 1);
+  run.p = __shfl_up_sync(kAllLanes, total.p, 1);
+  run.b = __shfl_up_sync(kAllLanes, total.b, 1);
+  if (lane == 0 || run.g <= kNeg) {
+    run.g = kNeg;
+    run.p = 0;
+    run.b = 0;
+  }
+
+  // part 3: apply the prefix, F, the H selection, the running best
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int k = k0 + j;
+    const int h_nod = st.h[j], p_nod = st.ph[j], b_nod = st.bh[j];
+    const bool dead = h_nod == kNeg;
+    const Opener y = run;
+    Opener x;
+    x.g = h_nod - sc.gap_open + k * sc.gap_extend;
+    x.p = p_nod + (band - k);
+    x.b = b_nod;
+    run = keep_left(run, x);
+
+    const int f = y.g - (k - 1) * sc.gap_extend;
+    const int p_f = y.p + k - band;
+    const bool take_nod = h_nod >= f;  // diagonal/E win ties over F
+    int hh = h_nod > f ? h_nod : f;
+    const int p_hx = take_nod ? p_nod : p_f;
+    const int b_hx = take_nod ? b_nod : y.b;
+    hh = hh > 0 ? hh : 0;
+    if (dead) hh = 0;
+    const bool pos = hh > 0;
+    st.h[j] = hh;
+    st.ph[j] = pos ? p_hx : 0;
+    st.bh[j] = pos ? b_hx : cur_b0 + j;
+    if (hh > st.best_v) {
+      st.best_v = hh;
+      st.best_ij = i * 16 + j;
+      st.best_p = st.ph[j];
+      st.best_b = st.bh[j];
+    }
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    sw_full_warp_kernel(const int8_t* __restrict__ reads,
+                        const int32_t* __restrict__ rlens,
+                        const int8_t* __restrict__ refs,
+                        const int32_t* __restrict__ tlens,
+                        int32_t* __restrict__ out, int n, int q_max, int t_max,
+                        Scoring sc) {
+  constexpr int band = 32 * S;
+  constexpr int half = band / 2;
+  const int lane = threadIdx.x & 31;
+  const int pair = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (pair >= n) return;  // the whole warp leaves together
+  const int8_t* read = reads + static_cast<size_t>(pair) * q_max;
+  const int8_t* ref = refs + static_cast<size_t>(pair) * t_max;
+  const int rlen = mpn::clamp_read_len(rlens[pair], q_max);
+  const int tlen = mpn::clamp_ref_len(tlens[pair], t_max);
+  const int k0 = S * lane;
+
+  FullLane<S> st;
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    st.h[j] = st.e[j] = st.ph[j] = st.bh[j] = st.pe[j] = st.be[j] = 0;
+  st.best_v = st.best_ij = st.best_p = st.best_b = 0;
+
+  mpn::RefWindow<S> win;
+  win.init(ref, k0 - half, tlen);
+  uint32_t read_now = mpn::read_word(read, 0, q_max);
+  uint32_t read_ahead = mpn::read_word(read, 4, q_max);
+
+  for (int i = 0; i < rlen; ++i) {
+    const int r = i & 3;
+    uint32_t tc_words[S / 4];
+    win.row(r, tc_words);
+    full_row<S>(st, i, static_cast<int>((read_now >> (8 * r)) & 0xFFu),
+                tc_words, lane, k0, sc);
+    if (r == 3) {  // the next row starts a block of four
+      win.advance(ref, i + 1, k0 - half, tlen);
+      read_now = read_ahead;
+      read_ahead = mpn::read_word(read, i + 5, q_max);
+    }
+  }
+
+  // warp reduction by (max score, min row, min slot) on one packed key
+  const int best_i = st.best_ij >> 4;
+  const int best_k = k0 + (st.best_ij & 15);
+  const unsigned long long key = mpn::warp_max_key(
+      (static_cast<unsigned long long>(st.best_v) << 32) |
+      (static_cast<unsigned long long>(32767 - best_i) << 16) |
+      static_cast<unsigned long long>(65535 - best_k));
+  int wk = 65535 - static_cast<int>(key & 0xFFFFull);
+  // the companions are taken before a no-alignment result is zeroed
+  const int wp = __shfl_sync(kAllLanes, st.best_p, wk / S);
+  const int wb = __shfl_sync(kAllLanes, st.best_b, wk / S);
+  if (lane != 0) return;
+  int score = static_cast<int>(key >> 32);
+  int wi = 32767 - static_cast<int>((key >> 16) & 0xFFFFull);
+  if (score <= 0) {
+    score = 0;
+    wi = 0;
+    wk = 0;
+  }
+  int32_t* o = out + static_cast<size_t>(pair) * 7;
+  o[0] = score;
+  o[1] = wi;
+  o[2] = wi + wk - half;
+  o[3] = wp >> 16;
+  o[4] = wp & 0xFFFF;
+  o[5] = (wb >> 15) - band;
+  o[6] = (wb & 0x7FFF) - band;
+}
+
+__global__ void sw_full_block_kernel(const int8_t* __restrict__ reads,
+                                     const int32_t* __restrict__ rlens,
+                                     const int8_t* __restrict__ refs,
+                                     const int32_t* __restrict__ tlens,
+                                     int32_t* __restrict__ out, int q_max,
+                                     int t_max, int band, Scoring sc) {
+  const int match = sc.match, mismatch = sc.mismatch;
+  const int gap_open = sc.gap_open, gap_extend = sc.gap_extend;
   extern __shared__ int32_t smem[];
   const int k = threadIdx.x;
   const int pair = blockIdx.x;
   const int half = band >> 1;
   const int8_t* read = reads + static_cast<size_t>(pair) * q_max;
-  const int8_t* ref = refs + static_cast<size_t>(pair) * width;
-  int rlen = rlens[pair];
-  rlen = rlen < 0 ? 0 : (rlen > q_max ? q_max : rlen);
+  const int8_t* ref = refs + static_cast<size_t>(pair) * t_max;
+  const int rlen = mpn::clamp_read_len(rlens[pair], q_max);
+  const int tlen = mpn::clamp_ref_len(tlens[pair], t_max);
 
   // previous-row exchange (H, E and their companions) for the k+1 -> k shift
   int32_t* xh = smem;
@@ -77,14 +338,13 @@ __global__ void sw_full_kernel(const int8_t* __restrict__ reads,
       be_up = xbe[k + 1];
     }
 
-    const int rc = read[i];
-    const int jj = i + k;
-    const int tc = jj < width ? ref[jj] : 5;
+    const int cur_j = i + k - half;
+    const int rc = mpn::read_code(read, i, q_max);
+    const int tc = mpn::ref_code(ref, cur_j, tlen);
     const bool ambig = (rc == 4) || (tc >= 4);
     const int sub = ambig ? 0 : (rc == tc ? match : -mismatch);
     const bool dead = tc == 5;
     const bool is_match = (rc == tc) && !ambig;
-    const int cur_j = i + k - half;
     const int cur_b = (i + band) * 32768 + (cur_j + band);
 
     // diagonal: fresh start when the predecessor H is 0 (local stop)
@@ -206,20 +466,65 @@ __global__ void sw_full_kernel(const int8_t* __restrict__ reads,
   o[6] = (best_b & 0x7FFF) - band;
 }
 
+template <int S>
+void launch_warp_form(const int8_t* reads, const int32_t* rlens,
+                      const int8_t* refs, const int32_t* tlens, int32_t* out,
+                      int n, int q_max, int t_max, const Scoring& sc,
+                      cudaStream_t stream) {
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  sw_full_warp_kernel<S><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
+      reads, rlens, refs, tlens, out, n, q_max, t_max, sc);
+}
+
 }  // namespace
 
-extern "C" int mpn_sw_full(const void* reads, const void* rlens,
-                           const void* refs, void* out, int n, int q_max,
-                           int width, int band, int match, int mismatch,
-                           int gap_open, int gap_extend, int device,
-                           void* stream) {
+// reads (n, q_max) and refs (n, t_max) int8 with q_max and t_max multiples
+// of 4 and 4-byte aligned bases, rlens and tlens (n,) int32, out (n, 7)
+// int32. form: 0 = the warp form where the band has one, 1 = warp per pair,
+// 2 = block per pair.
+extern "C" int mpn_sw_full(const void* reads_, const void* rlens_,
+                           const void* refs_, const void* tlens_, void* out_,
+                           int n, int q_max, int t_max, int band, int match,
+                           int mismatch, int gap_open, int gap_extend,
+                           int form, int device, void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
-  const size_t smem = static_cast<size_t>(12) * band * sizeof(int32_t);
-  sw_full_kernel<<<n, band, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(reads), static_cast<const int32_t*>(rlens),
-      static_cast<const int8_t*>(refs), static_cast<int32_t*>(out), q_max,
-      width, band, match, mismatch, gap_open, gap_extend);
+  const auto* reads = static_cast<const int8_t*>(reads_);
+  const auto* rlens = static_cast<const int32_t*>(rlens_);
+  const auto* refs = static_cast<const int8_t*>(refs_);
+  const auto* tlens = static_cast<const int32_t*>(tlens_);
+  auto* out = static_cast<int32_t*>(out_);
+  auto stream = static_cast<cudaStream_t>(stream_);
+  const Scoring sc{match, mismatch, gap_open, gap_extend};
+  if (band < 128 || band > 1024 || band % 128 != 0 || q_max % 4 != 0 ||
+      t_max % 4 != 0 || reinterpret_cast<uintptr_t>(reads) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(refs) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (form == 0) form = mpn::has_warp_form(band) ? 1 : 2;
+  if (form == 1 && band == 128)
+    launch_warp_form<4>(reads, rlens, refs, tlens, out, n, q_max, t_max, sc,
+                        stream);
+  else if (form == 1 && band == 256)
+    launch_warp_form<8>(reads, rlens, refs, tlens, out, n, q_max, t_max, sc,
+                        stream);
+  else if (form == 1 && band == 512)
+    launch_warp_form<16>(reads, rlens, refs, tlens, out, n, q_max, t_max, sc,
+                         stream);
+  else if (form == 2) {
+    // 12 planes of band int32; with the kernel's static 256 bytes, band 1024
+    // goes past the 48 KB a launch gets without asking
+    const size_t smem = 12 * band * sizeof(int32_t);
+    if (smem + 256 > 48 * 1024) {
+      err = cudaFuncSetAttribute(sw_full_block_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    sw_full_block_kernel<<<n, band, smem, stream>>>(
+        reads, rlens, refs, tlens, out, q_max, t_max, band, sc);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,8 +11,16 @@ differ in the carried E: the full-stats step zeroes it on dead (sentinel 5)
 slots, the score-only step does not.
 
 Each wrapper dispatches on where the tensors lie: on the CPU it runs the
-plain version, on a CUDA device it launches the kernel (or raises). It counts
-its kernel launches in `<wrapper>.launches`.
+plain version (on `_prepare`'s padded copy, as the TPU wrapper pads), on a
+CUDA device it launches the kernel on the caller's windows (or raises). It
+counts its kernel launches in `<wrapper>.launches`.
+
+The CUDA kernels walk a row in another order than the reference: each lane
+of a warp owns band / 32 consecutive slots, the F chain is a scan inside the
+lane, a scan over the lane totals and a second walk, and the running best is
+kept per lane. `f_chain_blocked`, `f_max_blocked`, `lane_best_update` and
+`lane_best_reduce` spell those pieces out in plain PyTorch, apart from the
+plain versions, so that a CPU test can hold them to the reference's order.
 """
 
 from __future__ import annotations
@@ -36,6 +44,12 @@ def _pad_cols(x: torch.Tensor, left: int, right: int, value: int):
     return torch.cat(parts, dim=1) if len(parts) > 1 else x
 
 
+def _check_band(band):
+    if band % 128 or not 0 < band <= 1024:
+        raise ValueError(f"band must be a multiple of 128 in [128, 1024]; "
+                         f"got {band}")
+
+
 def _prepare(reads, read_lens, refs, ref_lens, band):
     """The TPU wrapper's padding (kernels/sw.py:372-390 of the TPU package):
     reads to a 128 multiple with 4, refs to >= q_max and a 128 multiple with
@@ -44,9 +58,7 @@ def _prepare(reads, read_lens, refs, ref_lens, band):
     n, q_max = reads.shape
     t_max = refs.shape[1]
     half = band // 2
-    if band % 128 or not 0 < band <= 1024:
-        raise ValueError(f"band must be a multiple of 128 in [128, 1024]; "
-                         f"got {band}")
+    _check_band(band)
     q_pad = (-q_max) % 128
     reads = _pad_cols(reads.to(torch.int8), 0, q_pad, 4)
     q_max += q_pad
@@ -82,6 +94,117 @@ def _shift_left1(x, fill):
 def _shift_right(x, s, fill):
     """out[:, k] = x[:, k-s], fill in the first s slots."""
     return torch.cat([torch.full_like(x[:, :s], fill), x[:, :-s]], dim=1)
+
+
+def _keep_left(left, right):
+    """The F chain's combine on (g, p, b) tuples: the left operand stays
+    when left.g >= right.g (the earlier slot wins ties), else the right."""
+    take = left[0] >= right[0]
+    return tuple(torch.where(take, a, b) for a, b in zip(left, right))
+
+
+def f_chain_blocked(g, gp, gb, slots):
+    """The F chain of one full-stats row in the order of the CUDA kernel's
+    warp-per-pair form (csrc/sw_full.cu), where `banded_sw_full_torch` runs
+    a Hillis-Steele scan: band / slots lanes of `slots` consecutive slots
+    each; a sequential scan inside each lane for the lane totals, a
+    doubling scan over the lane totals, the exclusive prefix seeded with
+    the fill (NEG, 0, 0) left of slot 0, then a second walk over each
+    lane's slots that applies the prefix. `_keep_left` picks the leftmost
+    maximum, which does not depend on the grouping. Takes the (N, band)
+    planes g, gp, gb and returns (y, yp, yb). No path calls it: a CPU test
+    holds it to the reference's order."""
+    n, band = g.shape
+    lanes = band // slots
+    x = [t.reshape(n, lanes, slots) for t in (g, gp, gb)]
+    total = tuple(t[:, :, 0] for t in x)
+    for j in range(1, slots):
+        total = _keep_left(total, tuple(t[:, :, j] for t in x))
+    lane = torch.arange(lanes, dtype=torch.int32, device=g.device)[None, :]
+    s = 1
+    while s < lanes:
+        moved = (_shift_right(total[0], s, NEG), _shift_right(total[1], s, 0),
+                 _shift_right(total[2], s, 0))
+        merged = _keep_left(moved, total)
+        total = tuple(torch.where(lane >= s, a, b)
+                      for a, b in zip(merged, total))
+        s *= 2
+    run = (_shift_right(total[0], 1, NEG), _shift_right(total[1], 1, 0),
+           _shift_right(total[2], 1, 0))
+    fill = (lane == 0) | (run[0] <= NEG)
+    run = (torch.where(fill, NEG, run[0]), torch.where(fill, 0, run[1]),
+           torch.where(fill, 0, run[2]))
+    out = [torch.empty_like(t) for t in x]
+    for j in range(slots):
+        for o, r in zip(out, run):
+            o[:, :, j] = r
+        run = _keep_left(run, tuple(t[:, :, j] for t in x))
+    return tuple(o.reshape(n, band) for o in out)
+
+
+def f_max_blocked(g, slots):
+    """The F chain of one score-only row (exclusive prefix maximum of g,
+    floored at NEG) in the order of csrc/sw_scores.cu: a running maximum
+    (from NEG) inside each lane, a doubling maximum scan over the lane
+    totals, NEG left of slot 0, then the prefix applied slot by slot."""
+    n, band = g.shape
+    lanes = band // slots
+    x = g.reshape(n, lanes, slots)
+    total = torch.full_like(x[:, :, 0], NEG)
+    for j in range(slots):
+        total = torch.maximum(total, x[:, :, j])
+    lane = torch.arange(lanes, dtype=torch.int32, device=g.device)[None, :]
+    s = 1
+    while s < lanes:
+        moved = _shift_right(total, s, NEG)
+        total = torch.where((lane >= s) & (moved > total), moved, total)
+        s *= 2
+    run = _shift_right(total, 1, NEG)
+    out = torch.empty_like(x)
+    for j in range(slots):
+        out[:, :, j] = run
+        run = torch.maximum(run, x[:, :, j])
+    return out.reshape(n, band)
+
+
+def lane_best_update(state, h, i, extra, active, slots):
+    """The running best as the CUDA kernels keep it, one per lane of `slots`
+    consecutive slots: state is [value, row, slot, *extra] of (N, band /
+    slots) planes, or None before the first row. Row i's H (and its
+    companions `extra`, (N, band) each) is walked in ascending slot order
+    with a strict >, so the earliest row of a maximum and the smallest slot
+    of that row stay."""
+    n, band = h.shape
+    first = torch.arange(0, band, slots, dtype=torch.int32,
+                         device=h.device)[None, :]
+    if state is None:
+        z = torch.zeros((n, band // slots), dtype=torch.int32, device=h.device)
+        state = [z, z, first.expand_as(z)] + [z] * len(extra)
+    hs = h.reshape(n, -1, slots)
+    es = [x.reshape(n, -1, slots) for x in extra]
+    for j in range(slots):
+        improved = (hs[:, :, j] > state[0]) & active
+        new = [hs[:, :, j], i, first + j] + [x[:, :, j] for x in es]
+        state = [torch.where(improved, a, b) for a, b in zip(new, state)]
+    return state
+
+
+def lane_best_reduce(state, band):
+    """The kernels' final reduction over the per-lane bests: (max value, min
+    row, min slot), and `extra` at the winner, as (N, 1) columns [best,
+    best_i, best_k, *extra]. The companions are taken before a no-alignment
+    result is zeroed."""
+    best_v, best_i_v, slot, *extra = state
+    best = best_v.amax(dim=1, keepdim=True)
+    at_s = best_v == best
+    best_i = torch.where(at_s, best_i_v, 2 ** 30).amin(dim=1, keepdim=True)
+    at_si = at_s & (best_i_v == best_i)
+    best_k = torch.where(at_si, slot, band).amin(dim=1, keepdim=True)
+    at_k = at_si & (slot == best_k)
+    extra = [torch.where(at_k, x, 0).sum(dim=1, keepdim=True,
+                                         dtype=torch.int32) for x in extra]
+    none = best <= 0
+    return [torch.where(none, 0, x) for x in (best, best_i, best_k)] + extra
 
 
 def banded_sw_full_torch(reads, read_lens, refs_padded, *, band, match,
@@ -206,18 +329,49 @@ def banded_sw_full_torch(reads, read_lens, refs_padded, *, band, match,
     return out
 
 
-def _sw_full_cuda(reads, read_lens, refs_padded, *, band, match, mismatch,
-                  gap_open, gap_extend):
+# Forms of the two CUDA kernels (csrc/sw_full.cu, csrc/sw_scores.cu). The
+# wrappers always pass FORM_BY_SHAPE; the other two let a check on the card
+# hold each form to the plain version and time one against the other.
+FORM_BY_SHAPE, FORM_WARP, FORM_BLOCK = 0, 1, 2
+
+
+def _word_rows(x, fill):
+    """x as the CUDA kernels read it: int8, contiguous, every row a whole
+    number of 32-bit words (padded with `fill`) from a 4-byte aligned base.
+    The map path's planes already are, and pass through untouched."""
+    x = _pad_cols(x.to(torch.int8), 0, (-x.shape[1]) % 4, fill).contiguous()
+    return x if x.data_ptr() % 4 == 0 else x.clone()
+
+
+def _launch(entry, wrapper, out_shape, reads, read_lens, refs, ref_lens, *,
+            band, match, mismatch, gap_open, gap_extend, form):
+    """Launch one of the two extension kernels on the caller's windows: the
+    kernels form the dead cells left of a window and past its length
+    themselves, so no padded copy (`_prepare`) is made on this route."""
+    _check_band(band)
+    n = reads.shape[0]
+    if refs.shape[0] != n or read_lens.shape != (n,) or ref_lens.shape != (n,):
+        raise ValueError(f"{entry}: {n} reads, {refs.shape[0]} refs, lengths "
+                         f"{tuple(read_lens.shape)}, {tuple(ref_lens.shape)}")
     lib = build.load()
-    n, q_max = reads.shape
-    out = torch.empty((n, 7), dtype=torch.int32, device=reads.device)
+    reads, refs = _word_rows(reads, 4), _word_rows(refs, 5)
+    read_lens = read_lens.to(torch.int32).contiguous()
+    ref_lens = ref_lens.to(torch.int32).contiguous()
+    out = torch.empty(out_shape, dtype=torch.int32, device=reads.device)
     device, stream = build.launch_args(reads)
-    build.check(lib.mpn_sw_full(
-        reads.data_ptr(), read_lens.data_ptr(), refs_padded.data_ptr(),
-        out.data_ptr(), n, q_max, refs_padded.shape[1], band, match,
-        mismatch, gap_open, gap_extend, device, stream), "mpn_sw_full")
-    build.count_launch(banded_sw_full)
+    build.check(getattr(lib, entry)(
+        reads.data_ptr(), read_lens.data_ptr(), refs.data_ptr(),
+        ref_lens.data_ptr(), out.data_ptr(), n, reads.shape[1], refs.shape[1],
+        band, match, mismatch, gap_open, gap_extend, form,
+        device, stream), entry)
+    build.count_launch(wrapper)
     return out
+
+
+def _sw_full_cuda(reads, read_lens, refs, ref_lens, *, form=FORM_BY_SHAPE,
+                  **kw):
+    return _launch("mpn_sw_full", banded_sw_full, (reads.shape[0], 7), reads,
+                   read_lens, refs, ref_lens, form=form, **kw)
 
 
 def banded_sw_full(reads, read_lens, refs, ref_lens, *, band: int = 128,
@@ -235,14 +389,13 @@ def banded_sw_full(reads, read_lens, refs, ref_lens, *, band: int = 128,
     dev = _same_device(reads, read_lens, refs, ref_lens)
     if reads.shape[1] + band >= 2 ** 15 or refs.shape[1] + band >= 2 ** 15:
         raise ValueError("full-stats kernel packing needs windows < 32k")
-    reads, read_lens, refs_padded = _prepare(reads, read_lens, refs,
-                                             ref_lens, band)
     kw = dict(band=band, match=match, mismatch=mismatch, gap_open=gap_open,
               gap_extend=gap_extend)
     if dev.type == "cpu":
-        return banded_sw_full_torch(reads, read_lens, refs_padded, **kw)
+        return banded_sw_full_torch(
+            *_prepare(reads, read_lens, refs, ref_lens, band), **kw)
     if dev.type == "cuda":
-        return _sw_full_cuda(reads, read_lens, refs_padded, **kw)
+        return _sw_full_cuda(reads, read_lens, refs, ref_lens, **kw)
     raise ValueError(f"banded_sw_full: unsupported device {dev}")
 
 
@@ -314,18 +467,10 @@ def banded_sw_scores_torch(reads, read_lens, refs_padded, *, band, match,
     return out
 
 
-def _sw_scores_cuda(reads, read_lens, refs_padded, *, band, match, mismatch,
-                    gap_open, gap_extend):
-    lib = build.load()
-    n, q_max = reads.shape
-    out = torch.empty((3, n), dtype=torch.int32, device=reads.device)
-    device, stream = build.launch_args(reads)
-    build.check(lib.mpn_sw_scores(
-        reads.data_ptr(), read_lens.data_ptr(), refs_padded.data_ptr(),
-        out.data_ptr(), n, q_max, refs_padded.shape[1], band, match,
-        mismatch, gap_open, gap_extend, device, stream), "mpn_sw_scores")
-    build.count_launch(banded_sw_scores)
-    return out
+def _sw_scores_cuda(reads, read_lens, refs, ref_lens, *, form=FORM_BY_SHAPE,
+                    **kw):
+    return _launch("mpn_sw_scores", banded_sw_scores, (3, reads.shape[0]),
+                   reads, read_lens, refs, ref_lens, form=form, **kw)
 
 
 def banded_sw_scores(reads, read_lens, refs, ref_lens, *, band: int = 128,
@@ -338,18 +483,18 @@ def banded_sw_scores(reads, read_lens, refs, ref_lens, *, band: int = 128,
 
     The band is centered on the main diagonal: at read position i it covers
     ref positions [i - band/2, i + band/2). The TPU wrapper's batch_tile has
-    no counterpart: one thread block serves one pair."""
+    no counterpart: one warp (or, for very few pairs, one block) serves one
+    pair."""
     dev = _same_device(reads, read_lens, refs, ref_lens)
     if reads.shape[1] + 128 >= 2 ** 22:
         raise ValueError("score-only kernel takes reads below 2**22 rows")
-    reads, read_lens, refs_padded = _prepare(reads, read_lens, refs,
-                                             ref_lens, band)
     kw = dict(band=band, match=match, mismatch=mismatch, gap_open=gap_open,
               gap_extend=gap_extend)
     if dev.type == "cpu":
-        out = banded_sw_scores_torch(reads, read_lens, refs_padded, **kw)
+        out = banded_sw_scores_torch(
+            *_prepare(reads, read_lens, refs, ref_lens, band), **kw)
     elif dev.type == "cuda":
-        out = _sw_scores_cuda(reads, read_lens, refs_padded, **kw)
+        out = _sw_scores_cuda(reads, read_lens, refs, ref_lens, **kw)
     else:
         raise ValueError(f"banded_sw_scores: unsupported device {dev}")
     return out[0], out[1], out[2]

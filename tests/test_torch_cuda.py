@@ -60,6 +60,126 @@ def test_sw_scores_kernel_matches_plain(cuda, band):
     assert torch.equal(got.cpu(), ref.cpu())
 
 
+def _rep(unit, n):
+    return np.tile(np.array(unit, np.int8), n // len(unit) + 1)[:n]
+
+
+def _pad(pairs):
+    q_max = max(len(r) for r, _ in pairs)
+    t_max = max(len(x) for _, x in pairs)
+    ra = np.full((len(pairs), q_max), 4, np.int8)
+    ta = np.full((len(pairs), t_max), 5, np.int8)
+    for j, (r, x) in enumerate(pairs):
+        ra[j, : len(r)] = r
+        ta[j, : len(x)] = x
+    return (ra, np.array([len(r) for r, _ in pairs], np.int32), ta,
+            np.array([len(x) for _, x in pairs], np.int32))
+
+
+def _random_batch(rng, n, q, t):
+    ta = rng.integers(0, 4, (n, t)).astype(np.int8)
+    ra = ta[:, 10: 10 + q].copy()
+    flip = rng.random((n, q)) < 0.06
+    ra[flip] = rng.integers(0, 5, int(flip.sum()))
+    return ra, np.full(n, q, np.int32), ta, np.full(n, t, np.int32)
+
+
+def _batch(case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "ragged":
+        # N no multiple of the pairs a block holds, lengths 0..max inside
+        # one block, columns no multiple of 4 (the wrapper pads them)
+        ra, rl, ta, tl = _random_batch(rng, 331, 501, 643)
+        rl = rng.integers(0, 502, 331).astype(np.int32)
+        tl = rng.integers(0, 644, 331).astype(np.int32)
+        rl[:6] = (0, 501, 1, 0, 2, 3)
+        return ra, rl, ta, tl
+    if case == "mostly_empty":
+        # the fused PAF launch: a static cap of pairs, few of them live
+        ra, rl, ta, tl = _random_batch(rng, 2048, 512, 640)
+        live = np.zeros(2048, bool)
+        live[:300] = True
+        live[1024:] = rng.random(1024) < 0.1
+        return ra, np.where(live, rl, 0).astype(np.int32), ta, \
+            np.where(live, tl, 0).astype(np.int32)
+    if case == "ties":
+        pairs = []
+        for unit in ([0], [0, 1], [0, 1, 2]):
+            for _ in range(6):
+                q, t = (int(x) for x in rng.integers(60, 300, 2))
+                cut = int(rng.integers(10, q - 10))
+                with_n = _rep(unit, q)
+                with_n[cut: cut + 20] = 4
+                pairs += [(_rep(unit, q), _rep(unit, t)),
+                          (np.delete(_rep(unit, q), slice(cut, cut + 5)),
+                           _rep(unit, t)), (with_n, _rep(unit, t))]
+        pairs += [(_rep([0], 200), _rep([0], t)) for t in (0, 1, 2, 3, 17, 63)]
+        pairs += [(np.full(120, 4, np.int8), _rep([1], 200)),
+                  (_rep([1], 120), np.full(200, 4, np.int8))]
+        return _pad(pairs)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("form", [sw.FORM_BY_SHAPE, sw.FORM_WARP,
+                                  sw.FORM_BLOCK])
+@pytest.mark.parametrize("band", [128, 256, 512])
+@pytest.mark.parametrize("case", ["ragged", "mostly_empty", "ties"])
+def test_sw_kernels_hard_batches_match_plain(cuda, case, band, form):
+    args = [torch.from_numpy(x).to(cuda) for x in _batch(case)]
+    prepared = sw._prepare(*args, band)
+    got = sw._sw_full_cuda(*args, band=band, form=form, **PARAMS)
+    ref = sw.banded_sw_full_torch(*prepared, band=band, **PARAMS)
+    assert torch.equal(got.cpu(), ref.cpu())
+    got = sw._sw_scores_cuda(*args, band=band, form=form, **PARAMS)
+    ref = sw.banded_sw_scores_torch(*prepared, band=band, **PARAMS)
+    assert torch.equal(got.cpu(), ref.cpu())
+
+
+@pytest.mark.parametrize("band", [384, 1024])
+def test_sw_kernels_other_bands_match_plain(cuda, band):
+    """Bands without a warp-per-pair instantiation take the block form."""
+    args = [torch.from_numpy(x).to(cuda) for x in _batch("ragged")]
+    prepared = sw._prepare(*args, band)
+    got = sw.banded_sw_full(*args, band=band, **PARAMS)
+    ref = sw.banded_sw_full_torch(*prepared, band=band, **PARAMS)
+    assert torch.equal(got.cpu(), ref.cpu())
+    got = torch.stack(sw.banded_sw_scores(*args, band=band, **PARAMS))
+    ref = sw.banded_sw_scores_torch(*prepared, band=band, **PARAMS)
+    assert torch.equal(got.cpu(), ref.cpu())
+
+
+@pytest.mark.parametrize("form", [sw.FORM_WARP, sw.FORM_BLOCK])
+def test_sw_scores_rows_past_2_15(cuda, form):
+    """Reads of 40000 bases: end rows beyond the full-stats packing."""
+    rng = np.random.default_rng(15)
+    ra, rl, ta, tl = _random_batch(rng, 6, 40000, 40960)
+    rl[1], rl[2], tl[3] = 33000, 0, 36000
+    args = [torch.from_numpy(x).to(cuda) for x in (ra, rl, ta, tl)]
+    got = sw._sw_scores_cuda(*args, band=512, form=form, **PARAMS)
+    ref = sw.banded_sw_scores_torch(*sw._prepare(*args, 512), band=512,
+                                    **PARAMS)
+    assert torch.equal(got.cpu(), ref.cpu())
+    assert int(got[1].max()) > 2 ** 15
+
+
+def test_sw_kernels_lengths_out_of_range(cuda):
+    """Lengths below 0 and beyond the planes are clamped as the plain
+    versions clamp them."""
+    rng = np.random.default_rng(16)
+    ra, rl, ta, tl = _random_batch(rng, 8, 200, 260)
+    rl[:4] = (-3, 250, 256, 1000)
+    tl[2:6] = (-1, 261, 5000, 0)
+    args = [torch.from_numpy(x).to(cuda) for x in (ra, rl, ta, tl)]
+    prepared = sw._prepare(*args, 128)
+    for form in (sw.FORM_WARP, sw.FORM_BLOCK):
+        got = sw._sw_full_cuda(*args, band=128, form=form, **PARAMS)
+        ref = sw.banded_sw_full_torch(*prepared, band=128, **PARAMS)
+        assert torch.equal(got.cpu(), ref.cpu())
+        got = sw._sw_scores_cuda(*args, band=128, form=form, **PARAMS)
+        ref = sw.banded_sw_scores_torch(*prepared, band=128, **PARAMS)
+        assert torch.equal(got.cpu(), ref.cpu())
+
+
 @pytest.mark.parametrize("a", [32, 256])
 def test_chain_kernel_matches_plain(cuda, a):
     rng = np.random.default_rng(a)

@@ -52,7 +52,9 @@ def test_package_imports_without_jax():
 
 def _port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _dirs, files in os.walk(PKG_DIR):
+    for root, dirs, files in os.walk(PKG_DIR):
+        if root == PKG_DIR and "build" in dirs:
+            dirs.remove("build")    # build outputs, not sources of the port
         paths += [os.path.join(root, f) for f in files
                   if f.endswith((".py", ".cu", ".cuh"))]
     return paths
