@@ -23,9 +23,15 @@ failure:
    goes through the wrapper and through both forms of its kernel (a warp
    per pair, a block per pair), and the two forms are timed in turn:
    block, warp, warp, block. chain_and_extents on 16384 groups x 32
-   anchors, 4096 x 256, and on groups that read every entry of the
-   gap-cost table. Times from CUDA events after a warm-up; beside each, the
-   least time the card could take for the same inputs (see `Bound`).
+   anchors, 4096 x 256, on groups that read every entry of the gap-cost
+   table, on int16 planes, on rows of 33, 100 and 512 anchors, with windows
+   of 1, 7 and 31, on a batch of empty groups and on counts beyond the row
+   and below 0; its time is given twice, around the wrapper (CUDA events)
+   and for the kernel alone (torch.profiler), and the profiled run of 20
+   calls must show no host-to-device copy, no synchronisation and no other
+   device work than the kernel. Times from CUDA events after a warm-up;
+   beside each, the least time the card could take for the same inputs
+   (see `Bound`).
 3. The PAF-mode map at a real size: 32 random genomes of 4 Mbp (128 Mbp,
    k=15 w=10 index), 32768 simulated 1 kb reads at 6% error (sub:ins:del
    2:1:1, half reverse-complemented), mapped with
@@ -36,7 +42,11 @@ failure:
    time, idle share, kernel time by name). Then 2048 reads of 4 kb, so that
    band 256 runs on the path.
 4. The same aligner on the card and on the CPU (plain versions) on 512
-   reads in PAF mode: all 18 AlignList fields equal.
+   reads in PAF mode: all 18 AlignList fields equal. Then 2048 reads in
+   slices of 512 with the device-seeding caps cut to a quarter, on both:
+   slices overflow and their tails are redone host-seeded; at least one
+   read must have been redone, and records, overflow statistics and cap
+   scales must be equal.
 5. The CIGAR-mode map on the same index: 8192 of those 1 kb reads with
    map_reads(slice_size=4096, emit_cigars=True) (two worker threads), the
    same accuracy bars, every CIGAR consistent with its record, a SAM file
@@ -60,6 +70,20 @@ runs phases 1 and 2 only (a quick check after a change to a kernel) and
 ends with a {"kernel_checks": [...]} line: the same per-kernel records
 without the launch counts (no map ran, so there is none to report), and
 without the "ok" line.
+
+    python3 chip_smoke.py chain [TREE]
+
+times the chain wrapper alone (wrapper, kernel only, uploads and
+synchronisations a call, the host's wait behind queued work) and ends with a
+{"chain_times": [...]} line.
+
+    python3 chip_smoke.py maps [TREE]
+
+runs phases 1, 3 and 5 only: the two maps with their timed runs, stage
+times and profile. With TREE (a directory that holds megapath_nano_tpu_torch/
+and cpp/ of another checkout), `chain` and `maps` import that package
+instead of this one's: two versions can be timed in turn on one card, one
+after the other.
 """
 
 from __future__ import annotations
@@ -182,6 +206,16 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def steady_ms(fn, iters=50, turns=3):
+    """Time a call of a short kernel's wrapper: the least of `turns` runs of
+    `iters` calls each, after a few calls that bring the card's clocks and
+    the allocator to a steady state. Returns (least, all turns)."""
+    for _ in range(5):
+        fn()
+    times = [cuda_ms(fn, iters) for _ in range(turns)]
+    return min(times), times
+
+
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by) for a call that must move n_bytes and do n_ops
     int32 operations."""
@@ -202,12 +236,13 @@ def sw_bound(arrays, band, ops_per_cell, out_cols):
 
 
 def chain_bound(arrays, window=32, bandwidth=500):
-    """Bound of one chain call on int32 (q, t, cnt): pairs = for every live
-    anchor i of a group, its min(i, window) predecessors."""
+    """Bound of one chain call on (q, t, cnt), int16 or int32 planes and
+    int32 counts: pairs = for every live anchor i of a group, its
+    min(i, window) predecessors."""
     q, t, cnt = arrays
-    n_bytes = 4 * (q.size + t.size + cnt.size) + 4 * (bandwidth + 1) \
+    n_bytes = q.nbytes + t.nbytes + 4 * cnt.size + 4 * (bandwidth + 1) \
         + 24 * len(cnt)
-    c = np.minimum(cnt, q.shape[1]).astype(np.int64)
+    c = np.clip(cnt, 0, q.shape[1]).astype(np.int64)
     w = np.minimum(c, window)
     pairs = int((w * (w - 1) // 2 + (c - w) * window).sum())
     return bound(n_bytes, pairs * CHAIN_OPS_PER_PAIR)
@@ -473,28 +508,172 @@ def beta_groups(bandwidth=500, a=32):
     return q, t, np.full(n, a, np.int32)
 
 
-def check_chain(name, arrays, kernel_iters=20, plain_iters=2):
+def chain_profile(fn, calls):
+    """`calls` calls of a chain wrapper under torch.profiler. Returns (the
+    chain kernel's own time a call in ms, the names of all other device
+    work such as copies and conversion kernels, the synchronisations the
+    host made) over those calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize")
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(4):   # the tracer now and then drops events
+        with profile(activities=acts) as prof:
+            with record_function("chain_calls"):
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        span = next(ev.time_range for ev in events
+                    if ev.name == "chain_calls")
+        kernel_us, others, syncs = [], [], 0
+        for ev in events:
+            if ev.name == "chain_calls":    # the span, on either timeline
+                continue
+            if ev.device_type == DeviceType.CUDA:
+                if "chain_kernel" in ev.name:
+                    kernel_us.append(ev.time_range.elapsed_us())
+                else:
+                    others.append(ev.name)
+            elif ev.name in waits \
+                    and span.start <= ev.time_range.start <= span.end:
+                syncs += 1
+        if len(kernel_us) == calls:
+            return sum(kernel_us) / 1e3 / calls, others, syncs
+    raise AssertionError(f"profiler saw {len(kernel_us)} chain kernels in "
+                         f"{calls} calls, four times over; kernel time not "
+                         f"measured")
+
+
+def check_chain(name, arrays, window=32, plain_iters=1):
+    """Hold the chain wrapper to the plain version on the card; time the
+    wrapper (CUDA events around the calls), the kernel alone (profiler) and
+    the plain version. After its first call on a device a call must be its
+    kernel alone: no upload, no conversion of int16 or int32 planes, no
+    synchronisation."""
     import torch
 
     from megapath_nano_tpu_torch.kernels import chain
 
     dev = torch.device("cuda")
     q, t, cnt = (torch.from_numpy(x).to(dev) for x in arrays)
-    beta = torch.from_numpy(chain.beta_table(15, 500).copy()).to(dev)
-    kern = chain.chain_and_extents(q, t, cnt)
-    plain = chain.chain_and_extents_torch(q, t, cnt, beta, window=32, k=15,
-                                          max_dist=5000, bandwidth=500)
+    kw = dict(window=window, k=15, max_dist=5000, bandwidth=500)
+    beta = chain.beta_tensor(15, 500, dev)
+
+    def kernel():
+        return chain.chain_and_extents(q, t, cnt, **kw)
+
+    def plain():
+        return chain.chain_and_extents_torch(q, t, cnt, beta, **kw)
+
+    kern, ref = kernel(), plain()
     torch.cuda.synchronize()
-    err = require_equal(name, kern, plain)
-    ms = cuda_ms(lambda: chain.chain_and_extents(q, t, cnt), kernel_iters)
-    plain_ms = cuda_ms(lambda: chain.chain_and_extents_torch(
-        q, t, cnt, beta, window=32, k=15, max_dist=5000, bandwidth=500),
-        plain_iters)
-    bnd = chain_bound(arrays)
-    log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bnd[0]:.4f} ms by {bnd[1]} "
-        f"({arrays[0].shape[0]} groups x {arrays[0].shape[1]} anchors)")
-    return kernel_record(err, ms, plain_ms, bnd)
+    err = require_equal(name, kern, ref)
+    ms, _ = steady_ms(kernel)
+    kernel_ms, others, syncs = chain_profile(kernel, 20)
+    if others or syncs:
+        raise AssertionError(
+            f"{name}: a chain call on the card must be its kernel alone; 20 "
+            f"calls also ran {others} and synchronised {syncs} times")
+    plain_ms = cuda_ms(plain, plain_iters)
+    bnd = chain_bound(arrays, window=window)
+    log(f"  {name}: wrapper {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms "
+        f"(20 calls: no other device work, no synchronisation), plain "
+        f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} "
+        f"({arrays[0].shape[0]} groups x {arrays[0].shape[1]} anchors, "
+        f"{arrays[0].dtype}, window {window})")
+    rec = kernel_record(err, ms, plain_ms, bnd)
+    rec["kernel_only_ms"] = kernel_ms
+    return rec
+
+
+def chain_edge_groups(rng):
+    """(name, arrays, window) of the chain checks beyond the main paths'
+    shapes: int16 planes, row lengths that are no multiple of 32 and the
+    longest the host-chained path can ask for, short windows, a batch of
+    empty groups, counts beyond the row and below 0."""
+    def typed(arrays, dtype):
+        return arrays[0].astype(dtype), arrays[1].astype(dtype), arrays[2]
+
+    out = [("chain 4096 x 64, int16", typed(chain_groups(rng, 4096, 64),
+                                            np.int16), 32),
+           ("chain 1000 x 33", chain_groups(rng, 1000, 33), 32),
+           ("chain 1000 x 100, int16", typed(chain_groups(rng, 1000, 100),
+                                             np.int16), 32),
+           ("chain 515 x 512", chain_groups(rng, 515, 512), 32)]
+    for window in (1, 7, 31):
+        out.append((f"chain 2048 x 100, window {window}",
+                    chain_groups(rng, 2048, 100), window))
+    q, t, cnt = chain_groups(rng, 2048, 64)
+    out.append(("chain 2048 x 64, all counts 0", (q, t, np.zeros_like(cnt)),
+                32))
+    wild = rng.integers(-70, 140, len(cnt)).astype(np.int32)
+    out.append(("chain 2048 x 64, counts -70..139", (q, t, wild), 32))
+    return out
+
+
+def chain_times(rng, tree):
+    """Times of the chain wrapper of the package under `tree` (this checkout
+    or another one, for a comparison on one card in one go): CUDA
+    events around the calls, the kernel alone under the profiler, the
+    uploads and synchronisations the calls made, and the host's time in one
+    call made while the stream still holds other work (a wrapper that
+    uploads from pageable memory waits for all of it). Returns the records
+    printed as the {"chain_times": [...]} line."""
+    import torch
+
+    from megapath_nano_tpu_torch.kernels import chain
+
+    dev = torch.device("cuda")
+    shapes = [("16384 x 32 int32", chain_groups(rng, 16384)),
+              ("4096 x 256 int32", chain_groups(rng, 4096, 256))]
+    q, t, cnt = chain_groups(rng, 4096, 64)
+    shapes.append(("4096 x 64 int16", (q.astype(np.int16),
+                                       t.astype(np.int16), cnt)))
+    iters = 50
+    busy = torch.randn(8192, 8192, device=dev)
+    busy @ busy
+    out = []
+    for name, arrays in shapes:
+        q, t, cnt = (torch.from_numpy(x).to(dev) for x in arrays)
+
+        def call():
+            return chain.chain_and_extents(q, t, cnt)
+
+        least, turns = steady_ms(call, iters)
+        kernel_ms, others, syncs = chain_profile(call, iters)
+        htod = sum("memcpy" in x.lower() and "htod" in x.lower()
+                   for x in others)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(4):
+            busy @ busy
+        end.record()
+        t0 = time.perf_counter()
+        call()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        rec = {"tree": tree, "shape": name, "wrapper_ms": least,
+               "wrapper_ms_turns": turns, "kernel_only_ms": kernel_ms,
+               "htod_copies": htod, "synchronisations": syncs, "calls": iters,
+               "host_ms_behind_queue": host_ms,
+               "queued_ms": start.elapsed_time(end),
+               "bound_ms": chain_bound(arrays)[0]}
+        log(f"  chain {name}: wrapper {least:.4f} ms (turns "
+            + ", ".join(f"{x:.4f}" for x in turns)
+            + f"), kernel alone {kernel_ms:.4f} ms, {htod} uploads and "
+            f"{syncs} synchronisations in {iters} calls; host "
+            f"{host_ms:.3f} ms in a call behind {rec['queued_ms']:.2f} ms "
+            f"of queued work")
+        out.append(rec)
+    return out
 
 
 def phase_kernels(rng):
@@ -538,11 +717,14 @@ def phase_kernels(rng):
             check_sw("scores", "sw_scores fused-launch shape, 8192 pairs",
                      fused, 128)],
     }
-    chain = check_chain("chain 16384 x 32", chain_groups(rng, 16384))
+    chain = check_chain("chain 16384 x 32", chain_groups(rng, 16384),
+                        plain_iters=2)
     others["chain_and_extents"] = [
-        check_chain("chain 4096 x 256", chain_groups(rng, 4096, 256),
-                    kernel_iters=10, plain_iters=1),
+        check_chain("chain 4096 x 256", chain_groups(rng, 4096, 256)),
         check_chain("chain gap-cost table (dd 0..500)", beta_groups())]
+    others["chain_and_extents"] += [
+        check_chain(name, arrays, window=window)
+        for name, arrays, window in chain_edge_groups(rng)]
     out = {"banded_sw_full": full, "banded_sw_scores": scores,
            "chain_and_extents": chain}
     for name, rec in out.items():
@@ -757,6 +939,14 @@ def phase_map(rng):
         raise AssertionError(f"a kernel was not launched on the path: "
                              f"{launches}")
     check_accuracy(res, truth, "1 kb reads")
+    again = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        aligner.map_reads(reads, slice_size=4096, emit_cigars=False)
+        torch.cuda.synchronize()
+        again.append(32768 / (time.perf_counter() - t0))
+    log("  four more maps of the same reads: "
+        + ", ".join(f"{x:.1f}" for x in again) + " reads/s")
     stage_breakdown(aligner, reads[:4096])
     profile_map(aligner, reads)
 
@@ -789,6 +979,43 @@ def phase_card_vs_cpu(index, aligner, reads):
                                                           emit_cigars=False)
     log(f"  CPU map: {time.perf_counter() - t0:.1f} s")
     require_same_records("card vs CPU", gpu, cpu)
+
+
+def phase_cap_overflow(index, reads):
+    """The PAF-mode map with the device-seeding caps cut to a quarter, on
+    the card and on the CPU: slices overflow, the reads behind the cutoff
+    are redone through the host-seeded fused dispatch (the chain kernel on
+    redo-shaped groups), the cap scales adapt. Records, overflow statistics
+    and scales must agree."""
+    from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
+    from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
+
+    log("phase 4b: cap overflow and partial redo, 2048 reads, card vs CPU")
+
+    def quarter_caps(slice_n, read_max, occ=0.0):
+        return tuple(c // 4 for c in MinimizerAligner._devseed_caps(
+            slice_n, read_max, occ))
+
+    sub = reads[:2048]
+    out = {}
+    for device in ("cuda", "cpu"):
+        al = MinimizerAligner(index, device=device)
+        al._devseed_caps = quarter_caps
+        before = chain_and_extents.launches
+        t0 = time.perf_counter()
+        res = al.map_reads(sub, slice_size=512, emit_cigars=False)
+        log(f"  {device}: {time.perf_counter() - t0:.1f} s, overflow_stats "
+            f"{al.overflow_stats}, cap scales {al._cap_scales}, chain "
+            f"launches {chain_and_extents.launches - before}")
+        out[device] = (res, dict(al.overflow_stats), dict(al._cap_scales))
+    (gpu, gpu_stats, gpu_scales), (cpu, cpu_stats, cpu_scales) = \
+        out["cuda"], out["cpu"]
+    if gpu_stats["reads_redone"] < 1:
+        raise AssertionError(f"no read was redone: {gpu_stats}")
+    if gpu_stats != cpu_stats or gpu_scales != cpu_scales:
+        raise AssertionError(f"card and CPU differ: {gpu_stats} / "
+                             f"{cpu_stats}, {gpu_scales} / {cpu_scales}")
+    require_same_records("cap overflow, card vs CPU", gpu, cpu)
 
 
 # ---------------------------------------------------------------------------
@@ -965,6 +1192,14 @@ def phase_cigar_map(rng, index, genomes, aligner, reads, truth):
                              f"{launches}")
     check_accuracy(res, sub_truth, "1 kb reads, CIGAR mode")
     check_cigars(res, "1 kb reads")
+    again = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        aligner.map_reads(sub, slice_size=4096, emit_cigars=True)
+        torch.cuda.synchronize()
+        again.append(n / (time.perf_counter() - t0))
+    log("  two more maps of the same reads: "
+        + ", ".join(f"{x:.1f}" for x in again) + " reads/s")
     # PAF mode through the same host-chained path (fused dispatch off):
     # the same candidates and windows, every field from the full-stats
     # kernel instead of the traceback, so the 11 fields are equal exactly
@@ -1067,9 +1302,24 @@ def kernels_line(kstats, paf_launches=None, cigar_launches=None):
 def main(argv):
     import torch
 
-    if argv not in ([], ["kernels"]):
-        raise SystemExit("usage: chip_smoke.py [kernels]")
+    if argv not in ([], ["kernels"]) and argv[:1] not in (["chain"],
+                                                           ["maps"]):
+        raise SystemExit(
+            "usage: chip_smoke.py [kernels | chain [TREE] | maps [TREE]]")
     rng = np.random.default_rng(2026)
+    if argv[:1] == ["maps"]:
+        phase_device()
+        index, genomes, aligner, reads, truth, _ = phase_map(rng)
+        phase_cigar_map(rng, index, genomes, aligner, reads, truth)
+        log(nvidia_smi_line())
+        return
+    if argv[:1] == ["chain"]:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device")
+        log(nvidia_smi_line())
+        print(json.dumps({"chain_times": chain_times(
+            rng, argv[1] if len(argv) > 1 else ".")}), flush=True)
+        return
     phase_device()
     kstats = phase_kernels(rng)
     if argv:
@@ -1078,6 +1328,7 @@ def main(argv):
         return
     index, genomes, aligner, reads, truth, paf_launches = phase_map(rng)
     phase_card_vs_cpu(index, aligner, reads)
+    phase_cap_overflow(index, reads)
     cigar_launches, _ = phase_cigar_map(rng, index, genomes, aligner, reads,
                                         truth)
     phase_cigar_card_vs_cpu(index, aligner, reads)
@@ -1089,5 +1340,8 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, ROOT)
+    # `chain TREE` and `maps TREE` run the package of another checkout
+    sys.path.insert(0, os.path.abspath(sys.argv[2])
+                    if sys.argv[1:2] in (["chain"], ["maps"])
+                    and len(sys.argv) > 2 else ROOT)
     main(sys.argv[1:])

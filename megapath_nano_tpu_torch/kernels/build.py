@@ -102,7 +102,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpn_sw_scores.restype = i
     lib.mpn_sw_scores.argtypes = sw_args
     lib.mpn_chain.restype = i
-    lib.mpn_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.mpn_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
 
 
 def load() -> ctypes.CDLL:

@@ -180,19 +180,88 @@ def test_sw_kernels_lengths_out_of_range(cuda):
         assert torch.equal(got.cpu(), ref.cpu())
 
 
-@pytest.mark.parametrize("a", [32, 256])
-def test_chain_kernel_matches_plain(cuda, a):
-    rng = np.random.default_rng(a)
-    n = 2000
-    t = np.sort(rng.integers(0, 3000 * a // 32, (n, a)), axis=1).astype(
-        np.int32)
+def _chain_rows(rng, n, a):
+    t = np.sort(rng.integers(0, min(3000 * max(a, 32) // 32, 30000),
+                             (n, a)), axis=1).astype(np.int32)
     q = (t + rng.integers(-30, 30, (n, a))).clip(0).astype(np.int32)
-    cnt = rng.integers(0, a + 1, n).astype(np.int32)
-    args = [torch.from_numpy(x).to(cuda) for x in (q, t, cnt)]
+    # a lattice in every fourth row: many equal candidates, so ties decide
+    q[::4] = q[::4] // 40 * 40
+    t[::4] = np.sort(t[::4] // 40 * 40, axis=1)
+    return q, t
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+@pytest.mark.parametrize("window", [32, 1, 7, 31])
+@pytest.mark.parametrize("a", [1, 31, 32, 33, 100, 256, 512])
+def test_chain_kernel_matches_plain(cuda, a, window, dtype):
+    rng = np.random.default_rng(a)
+    n = 2000 if a <= 256 else 301
+    q, t = _chain_rows(rng, n, a)
+    cnt = rng.integers(-3, a + 4, n).astype(np.int32)   # clamped to 0..a
+    cnt[:4] = (0, 1, a, a + 50)
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (q.astype(dtype), t.astype(dtype), cnt)]
     before = chain.chain_and_extents.launches
-    got = chain.chain_and_extents(*args)
+    got = chain.chain_and_extents(*args, window=window)
     assert chain.chain_and_extents.launches == before + 1
-    beta = torch.from_numpy(chain.beta_table(15, 500).copy()).to(cuda)
-    ref = chain.chain_and_extents_torch(*args, beta, window=32, k=15,
-                                        max_dist=5000, bandwidth=500)
+    ref = chain.chain_and_extents_torch(
+        *args, chain.beta_tensor(15, 500, cuda), window=window, k=15,
+        max_dist=5000, bandwidth=500)
     assert torch.equal(got.cpu(), ref.cpu())
+    assert got[:, 0].tolist() == [0, q[0, 0], q[0, 0], t[0, 0], t[0, 0], 1]
+
+
+def test_chain_kernel_empty_batches(cuda):
+    """No group at all, and groups without an anchor."""
+    none = torch.zeros((0, 32), dtype=torch.int32, device=cuda)
+    before = chain.chain_and_extents.launches
+    got = chain.chain_and_extents(none, none, none[:, 0])
+    assert got.shape == (6, 0) and got.dtype == torch.int32
+    assert chain.chain_and_extents.launches == before   # nothing to launch
+    rng = np.random.default_rng(5)
+    q, t = (torch.from_numpy(x).to(cuda) for x in _chain_rows(rng, 77, 64))
+    got = chain.chain_and_extents(q, t, torch.zeros(77, dtype=torch.int32,
+                                                    device=cuda))
+    one = torch.ones(77, dtype=torch.int32, device=cuda)
+    assert torch.equal(got, torch.stack([0 * one, q[:, 0], q[:, 0], t[:, 0],
+                                         t[:, 0], one]))
+
+
+def test_chain_wrapper_two_threads_one_table(cuda):
+    """Two threads call the wrapper at once, as the CIGAR-mode map does:
+    one cached gap-cost table per device, equal outputs, every launch
+    counted."""
+    import threading
+
+    rng = np.random.default_rng(6)
+    q, t = _chain_rows(rng, 4096, 64)
+    cnt = rng.integers(0, 65, 4096).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, t, cnt)]
+    k, bandwidth = 14, 333            # a table no other test has asked for
+    kw = dict(k=k, max_dist=5000, bandwidth=bandwidth)
+    assert not [key for key in chain._beta_tensors if key[:2] == (k, bandwidth)]
+    outs, tables = [[], []], [[], []]
+    gate = threading.Barrier(2)
+
+    def work(slot):
+        gate.wait(timeout=60)
+        for _ in range(50):
+            outs[slot].append(chain.chain_and_extents(*args, **kw))
+            tables[slot].append(chain.beta_tensor(k, bandwidth, cuda))
+        torch.cuda.synchronize()
+
+    before = chain.chain_and_extents.launches
+    threads = [threading.Thread(target=work, args=(s,)) for s in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert chain.chain_and_extents.launches == before + 100
+    keys = [key for key in chain._beta_tensors if key[:2] == (k, bandwidth)]
+    assert len(keys) == 1 and keys[0][2] == args[0].device
+    assert len({tb.data_ptr() for tb in tables[0] + tables[1]}) == 1
+    ref = chain.chain_and_extents_torch(
+        *args, chain.beta_tensor(k, bandwidth, cuda), window=32, **kw)
+    for got in outs[0] + outs[1]:
+        assert torch.equal(got, ref)
