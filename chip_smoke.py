@@ -60,9 +60,34 @@ failure:
    65536, band 512: beyond the full-stats kernel's limit).
 6. Card against CPU on 256 reads in CIGAR mode: 18 fields and the whole
    cigar_map equal.
+7. The taxon profile through its CLI (megapath_nano_tpu_torch.cli.main.main)
+   on the card, with the default flags (read filter, adapter trimming, PAF
+   placement): 32 genomes of 4 Mbp as 8 genera x 4 species (each species
+   its genus ancestor mutated by 3-8%), a RefDB built and saved, 32768
+   reads of 1 kb at 6% error as FASTQ with qualities, in a geometric mix
+   over the species (ratio 0.75, ranks drawn at random). At least 90% of
+   the reads aligned, at least 90% of the best alignments on the true
+   species, the .preport's top 8 in the order of the mix, every file of the
+   output surface written; sw_full and chain launched. The wall time, the
+   time by step (.timing) and the launch counts are logged.
+8. The CLI with the noise stack's gates on (human filter, reassignment,
+   spike, microbe-repetitive regions, variable regions, similar-species
+   marker, noise projection, unique alignment, closing spike): 8 genomes of
+   1 Mbp (2 genera x 4 species, 0.5-2% from their ancestor), a 2 Mbp human
+   RefDB, 4096 reads of 1 kb, 5% of them human. Once with --device cuda and
+   once with --device cpu (plain versions; a child process at low priority
+   started before phase 7, since it takes minutes): every output file equal
+   (archives member by member, .timing aside); sw_scores launched.
 
 The last line of output is {"ok": true, "device": {...}}; the line before it
-holds the per-kernel JSON record.
+holds the per-kernel JSON record, whose `launches_by_path` counts each
+kernel's launches in the PAF map, the CIGAR map and the profile (phase 7 and
+phase 8's card run).
+
+    python3 chip_smoke.py profile
+
+runs phases 1, 7 and 8 only and ends with a {"profile_launches": {...}}
+line.
 
     python3 chip_smoke.py kernels
 
@@ -843,10 +868,10 @@ def stage_breakdown(aligner, reads):
     return out
 
 
-def profile_map(aligner, reads):
-    """One more PAF-mode map under torch.profiler: the device's busy time
-    (union of kernel and copy intervals), its idle share of the wall, and
-    the kernel time by name."""
+def traced(fn):
+    """fn() under torch.profiler. Returns (fn's result, wall ms, device
+    busy ms (union of kernel and copy intervals) or None when the tracer
+    recorded no device event, device events, {name: (ms, count)})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -857,7 +882,7 @@ def profile_map(aligner, reads):
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        aligner.map_reads(reads, slice_size=4096, emit_cigars=False)
+        out = fn()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     spans, by_name = [], {}
@@ -869,9 +894,7 @@ def profile_map(aligner, reads):
         by_name[ev.name] = (total + ev.time_range.elapsed_us() / 1e3,
                             count + 1)
     if not spans:
-        log("  profiler: no device events recorded; device time not "
-            "measured")
-        return
+        return out, wall_ms, None, 0, by_name
     spans.sort()
     busy_us, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
@@ -880,9 +903,21 @@ def profile_map(aligner, reads):
             lo, hi = a, b
         else:
             hi = max(hi, b)
-    busy_ms = (busy_us + hi - lo) / 1e3
+    return out, wall_ms, (busy_us + hi - lo) / 1e3, len(spans), by_name
+
+
+def profile_map(aligner, reads):
+    """One more PAF-mode map under torch.profiler: the device's busy time
+    (union of kernel and copy intervals), its idle share of the wall, and
+    the kernel time by name."""
+    _, wall_ms, busy_ms, n_events, by_name = traced(
+        lambda: aligner.map_reads(reads, slice_size=4096, emit_cigars=False))
+    if busy_ms is None:
+        log("  profiler: no device events recorded; device time not "
+            "measured")
+        return
     log(f"  profiler, one traced map of {len(reads)} reads: wall "
-        f"{wall_ms:.2f} ms, device events {len(spans)}, summed "
+        f"{wall_ms:.2f} ms, device events {n_events}, summed "
         f"{sum(t for t, _ in by_name.values()):.2f} ms, busy (union) "
         f"{busy_ms:.2f} ms, idle share {100 - 100 * busy_ms / wall_ms:.2f}%")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
@@ -1270,6 +1305,334 @@ def phase_cigar_card_vs_cpu(index, aligner, reads):
     log(f"  cigar_map equal ({len(gpu.cigar_map)} entries)")
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the taxon profile through the CLI
+
+
+def taxon_world(rng, n_genus, per_genus, glen, divergence=(0.03, 0.08)):
+    """n_genus random ancestors of glen bases; each species a copy of its
+    genus ancestor mutated at a rate drawn from `divergence` (mutate_fast).
+    Returns (genomes, tax triples (tax, species, genus), tax names)."""
+    genomes, tax, names = [], [], {}
+    for g in range(n_genus):
+        ancestor = rng.integers(0, 4, glen).astype(np.int8)
+        for k in range(per_genus):
+            s = g * per_genus + k
+            genomes.append(mutate_fast(rng, ancestor,
+                                       float(rng.uniform(*divergence))))
+            tax.append((1000 + s, 100 + s, 10 + g))
+            names[100 + s] = f"Species {g}-{k}"
+    return genomes, tax, names
+
+
+def mixed_reads(rng, sources, counts, length, err):
+    """counts[i] reads of `length` from sources[i] at error rate err, half
+    reverse-complemented, shuffled. Returns (reads, source index a read)."""
+    from megapath_nano_tpu_torch.utils.dna import revcomp
+
+    reads, origin = [], []
+    for i, (genome, n) in enumerate(zip(sources, counts)):
+        for _ in range(int(n)):
+            s = int(rng.integers(0, len(genome) - length))
+            r = mutate_fast(rng, genome[s: s + length], err)
+            reads.append(revcomp(r) if rng.integers(0, 2) else r)
+            origin.append(i)
+    order = rng.permutation(len(reads))
+    return [reads[i] for i in order], np.asarray(origin)[order]
+
+
+def write_query(path, reads, rng):
+    """The reads as FASTQ with per-base qualities (phred 12..34)."""
+    from megapath_nano_tpu_torch.io.fastq import write_fastq
+
+    write_fastq(path, [f"read{i}" for i in range(len(reads))], reads,
+                [rng.integers(12, 35, len(r)).astype(np.int8)
+                 for r in reads])
+
+
+def save_refdb(genomes, tax, tax_names, prefix, path):
+    from megapath_nano_tpu_torch.db.refdb import RefDB
+
+    t0 = time.perf_counter()
+    n = len(genomes)
+    db = RefDB.build(genomes, [f"{prefix}{i}" for i in range(n)],
+                     list(range(n)), [f"asm_{prefix}{i}" for i in range(n)],
+                     tax, tax_names)
+    t1 = time.perf_counter()
+    db.save(path)
+    log(f"  RefDB {path}: {sum(map(len, genomes))} bases, "
+        f"{len(db.index.keys)} minimizers, built in {t1 - t0:.1f} s, "
+        f"saved in {time.perf_counter() - t1:.1f} s")
+
+
+def run_cli(args):
+    """megapath_nano_tpu_torch.cli.main.main(args) with the three launch
+    counts set to 0 before. Returns (wall s, launches)."""
+    import torch
+
+    from megapath_nano_tpu_torch.cli.main import main as cli_main
+    from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
+    from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
+                                                    banded_sw_scores)
+
+    kernels = {"banded_sw_full": banded_sw_full,
+               "chain_and_extents": chain_and_extents,
+               "banded_sw_scores": banded_sw_scores}
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main(args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main exited with {rc}: {args}")
+    return dt, {name: k.launches for name, k in kernels.items()}
+
+
+def log_timing(path):
+    with open(path) as f:
+        steps = [line.split("\t") for line in f.read().split("\n") if line]
+    log("  time by step (.timing, s): " + ", ".join(
+        f"{name} {float(sec):.3f}" for name, sec in steps))
+
+
+def read_tsv(path):
+    with open(path) as f:
+        header, *rows = [line.rstrip("\n").split("\t") for line in f]
+    return header, rows
+
+
+# the files a profile run with the default flags writes (no human or decoy
+# DB, no noise gate), after the prefix
+PROFILE_SURFACE = (
+    ".assembly_selection", ".bam_filter", ".bam_filter_good",
+    ".genome_set", ".id_stat", ".microbe_stat",
+    ".microbe_stat_by_sequence_id", ".noise.tar.gz", ".per_read.tar.gz",
+    ".preport", ".quality_score.tar.gz", ".raw_stat", ".read_count_by_name",
+    ".read_length.tar.gz", ".read_stat", ".species.paf", ".timing")
+
+
+def phase_profile(rng, work):
+    """Phase 7: 32 genomes of 4 Mbp (8 genera x 4 species), 32768 reads of
+    1 kb in a geometric mix over the species, the CLI with its default
+    flags on the card."""
+    log("phase 7: taxon profile at 128 Mbp through the CLI, on the card")
+    t0 = time.perf_counter()
+    genomes, tax, tax_names = taxon_world(rng, 8, 4, 4_000_000)
+    n_sp, n_reads = len(genomes), 32768
+    weights = 0.75 ** np.arange(n_sp)
+    counts = np.floor(n_reads * weights / weights.sum()).astype(np.int64)
+    counts[0] += n_reads - counts.sum()
+    rank = rng.permutation(n_sp)           # species rank[i] gets counts[i]
+    by_species = np.zeros(n_sp, np.int64)
+    by_species[rank] = counts
+    reads, origin = mixed_reads(rng, genomes, by_species, 1000, 0.06)
+    log(f"  world and reads: {time.perf_counter() - t0:.1f} s; reads a "
+        f"species, top 8: {counts[:8].tolist()}")
+    db_dir, out = os.path.join(work, "db128"), os.path.join(work, "out128")
+    save_refdb(genomes, tax, tax_names, "g", db_dir)
+    del genomes
+    query = os.path.join(work, "reads128.fastq")
+    t0 = time.perf_counter()
+    write_query(query, reads, rng)
+    log(f"  FASTQ written in {time.perf_counter() - t0:.1f} s")
+    (dt, launches), _, busy_ms, n_events, _ = traced(lambda: run_cli(
+        ["--query", query, "--db", db_dir, "--output_folder", out,
+         "--output_prefix", "p"]))
+    log(f"  cli.main: {dt:.3f} s wall for {n_reads} reads "
+        f"({n_reads / dt:.1f} reads/s end to end); launches {launches}")
+    if busy_ms is None:
+        log("  profiler: no device events recorded; device time not "
+            "measured")
+    else:
+        log(f"  profiler: {n_events} device events, device busy (union) "
+            f"{busy_ms:.2f} ms, idle share "
+            f"{100 - 100 * busy_ms / (1e3 * dt):.3f}% of the run's wall")
+    log_timing(os.path.join(out, "p.timing"))
+    if launches["banded_sw_full"] < 1 or launches["chain_and_extents"] < 1:
+        raise AssertionError(f"profile did not launch the PAF kernels: "
+                             f"{launches}")
+    missing = [x for x in PROFILE_SURFACE
+               if not os.path.exists(os.path.join(out, "p" + x))]
+    if missing:
+        raise AssertionError(f"profile output files missing: {missing}")
+    header, rows = read_tsv(os.path.join(out, "p.read_stat"))
+    stat = dict(zip(header, rows[0]))
+    total, aligned = int(stat["total_number_of_read"]), int(stat["aligned"])
+    if total != n_reads:
+        raise AssertionError(f"{total} reads reached the profile, not "
+                             f"{n_reads}")
+    header, rows = read_tsv(os.path.join(out, "p.bam_filter"))
+    rid, sp = header.index("read_id"), header.index("species_tax_id")
+    right = sum(int(r[sp]) == 100 + int(origin[int(r[rid])]) for r in rows)
+    log(f"  {aligned}/{total} reads aligned ({100 * aligned / total:.2f}%), "
+        f"{right}/{len(rows)} best alignments on the true species "
+        f"({100 * right / max(len(rows), 1):.2f}%)")
+    if aligned < 0.9 * total or right < 0.9 * len(rows):
+        raise AssertionError("profile below 90% aligned / 90% on the true "
+                             "species")
+    _, rows = read_tsv(os.path.join(out, "p.preport"))
+    got = [int(r[0]) for r in rows[:8]]
+    want = [100 + int(s) for s in rank[:8]]
+    log(f"  .preport top 8 {got}, the mix's top 8 {want}")
+    if got != want:
+        raise AssertionError("the .preport does not rank the top 8 species "
+                             "in the order of the mix")
+    return launches
+
+
+def same_outputs(dir_a, dir_b):
+    """The same file names; archives equal member by member (their headers
+    stamp times); every other file byte-equal; .timing (wall times) only
+    present on both. Returns the names."""
+    import tarfile
+
+    names = sorted(os.listdir(dir_a))
+    if names != sorted(os.listdir(dir_b)):
+        raise AssertionError(f"file lists differ: {names} / "
+                             f"{sorted(os.listdir(dir_b))}")
+
+    def members(path):
+        with tarfile.open(path) as t:
+            return {m.name: t.extractfile(m).read() if m.isfile() else m.type
+                    for m in t.getmembers()}
+
+    for n in names:
+        a, b = os.path.join(dir_a, n), os.path.join(dir_b, n)
+        if n.endswith(".timing"):
+            continue
+        if n.endswith(".tar.gz"):
+            same = members(a) == members(b)
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                same = fa.read() == fb.read()
+        if not same:
+            raise AssertionError(f"{n} differs between the two runs")
+    return names
+
+
+NOISE_GATES = ("--human_filter", "--reassignment", "--spike_filter",
+               "--microbe_repetitive_region_filter",
+               "--variable_region_adjustment", "--similar_species_marker",
+               "--noise_projection", "--unique_alignment",
+               "--closing_spike_filter")
+
+
+def noise_inputs(rng, work):
+    """Phase 8's inputs: 8 genomes of 1 Mbp (2 genera x 4 species) and a
+    2 Mbp human genome as two saved RefDBs, 4096 reads of 1 kb (5% human)
+    as FASTQ. Returns the CLI arguments of a run without the output folder
+    and the device."""
+    # species 0.5-2% from their genus ancestor: close enough for the
+    # similar-species marker and the >= 98% tiers of the microbe ladder
+    genomes, tax, tax_names = taxon_world(rng, 2, 4, 1_000_000,
+                                          divergence=(0.005, 0.02))
+    human = rng.integers(0, 4, 2_000_000).astype(np.int8)
+    weights = np.array([0.30, 0.15, 0.08, 0.04, 0.20, 0.10, 0.05, 0.03])
+    counts = np.round(4096 * 0.95 * weights).astype(np.int64)
+    counts = np.append(counts, 4096 - counts.sum())        # human: 5%
+    reads, _ = mixed_reads(rng, genomes + [human], counts, 1000, 0.06)
+    db_dir, hdb_dir = os.path.join(work, "db8"), os.path.join(work, "hdb")
+    save_refdb(genomes, tax, tax_names, "s", db_dir)
+    save_refdb([human], [(9606, 9606, 9605)], {9606: "Homo sapiens"}, "h",
+               hdb_dir)
+    query = os.path.join(work, "reads8.fastq")
+    write_query(query, reads, rng)
+    return ["--query", query, "--db", db_dir, "--human_db", hdb_dir,
+            "--output_prefix", "p", "--noise_projection_num_read_to_simulate",
+            "300", *NOISE_GATES]
+
+
+class BackgroundCli:
+    """The CLI in a child process at low priority (nice 10, 6 torch
+    threads), so that phase 8's CPU run (plain versions, minutes) overlaps
+    the card's phases, which keep a core or two of the host's eight busy.
+    stop() kills the child if it still runs."""
+
+    def __init__(self, args, log_path):
+        env = dict(os.environ, OMP_NUM_THREADS="6",
+                   PYTHONPATH=os.pathsep.join(
+                       [sys.path[0], os.environ.get("PYTHONPATH", "")]))
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            ["nice", "-n", "10", sys.executable, "-m",
+             "megapath_nano_tpu_torch.cli.main", *args],
+            env=env, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def wait(self, timeout):
+        """Wait for the child; raise unless it exits with 0. Returns the
+        seconds from its start to its end."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        if rc != 0:
+            with open(self.log_path) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"background CLI exited with {rc}:\n{tail}")
+        return time.perf_counter() - self.t0
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._log.close()
+
+
+def phase_profile_noise(work, args, cpu_run):
+    """Phase 8: the CLI with the noise stack's gates on, once on the card
+    (here) and once on the CPU (cpu_run, started before phase 7): the same
+    files."""
+    log("phase 8: taxon profile with the noise stack, card vs CPU")
+    card_out = os.path.join(work, "noise_cuda")
+    wall, launches = run_cli([*args, "--output_folder", card_out,
+                              "--device", "cuda"])
+    log(f"  --device cuda: {wall:.3f} s wall, launches {launches}")
+    log_timing(os.path.join(card_out, "p.timing"))
+    cpu_wall = cpu_run.wait(timeout=900)
+    cpu_out = os.path.join(work, "noise_cpu")
+    log(f"  --device cpu (child process, started before phase 7): "
+        f"{cpu_wall:.3f} s from its start to its end")
+    log_timing(os.path.join(cpu_out, "p.timing"))
+    names = same_outputs(card_out, cpu_out)
+    log(f"  {len(names)} files, equal between the card and the CPU: "
+        f"{', '.join(names)}")
+    header, rows = read_tsv(os.path.join(card_out, "p.read_stat"))
+    log("  read_stat: " + ", ".join(f"{h} {v}"
+                                    for h, v in zip(header, rows[0])))
+    for name in sorted(os.listdir(card_out)):
+        if name.endswith("noise.bed") or name in ("p.similar_species",
+                                                   "p.noise_projection"):
+            with open(os.path.join(card_out, name)) as f:
+                log(f"  {name}: {sum(1 for _ in f)} lines")
+    if launches["banded_sw_scores"] < 1:
+        raise AssertionError(f"the noise stack did not launch sw_scores: "
+                             f"{launches}")
+    return launches
+
+
+def phase_profiles(rng):
+    """Phases 7 and 8 in a scratch directory that is removed after: phase
+    8's inputs first and its CPU run started in the background, then phase
+    7, then phase 8's card run and the comparison. Returns the kernels'
+    launch counts on the profile path: phase 7's run and phase 8's card
+    run."""
+    with tempfile.TemporaryDirectory(prefix="mpn_profile_") as work:
+        args = noise_inputs(rng, work)
+        cpu_run = BackgroundCli(
+            [*args, "--output_folder", os.path.join(work, "noise_cpu"),
+             "--device", "cpu"], os.path.join(work, "noise_cpu.log"))
+        try:
+            launches7 = phase_profile(rng, work)
+            launches8 = phase_profile_noise(work, args, cpu_run)
+        finally:
+            cpu_run.stop()
+    return {k: launches7[k] + launches8[k] for k in launches7}
+
+
 def nvidia_smi_line():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1277,19 +1640,22 @@ def nvidia_smi_line():
     return smi.stdout.strip().splitlines()[0]
 
 
-def kernels_line(kstats, paf_launches=None, cigar_launches=None):
+def kernels_line(kstats, paf_launches=None, cigar_launches=None,
+                 profile_launches=None):
     """The per-kernel records as one JSON line. With the launch counts of
-    the two maps: {"kernels": [...]}, each record with `launches` (the count
-    from the kernel's own main path: the PAF-mode map for sw_full and chain,
-    the CIGAR-mode map for sw_scores) and both paths' counts in
-    `launches_by_path`. Without them (no map ran): {"kernel_checks": [...]},
-    the records without those two keys."""
+    the paths: {"kernels": [...]}, each record with `launches` (the count
+    from the kernel's own map path: the PAF-mode map for sw_full and chain,
+    the CIGAR-mode map for sw_scores) and every path's counts in
+    `launches_by_path` (the two maps, and the taxon profile: phase 7's run
+    and phase 8's card run together). Without them (no map ran):
+    {"kernel_checks": [...]}, the records without those two keys."""
     kernels = []
     for name, (src, rep) in KERNELS.items():
         rec = {"name": name, "route": "cuda", "source": src, "replaces": rep}
         if paf_launches is not None:
             by_path = {"paf_map": paf_launches[name],
-                       "cigar_map": cigar_launches[name]}
+                       "cigar_map": cigar_launches[name],
+                       "profile": profile_launches[name]}
             rec["launches"] = by_path["paf_map"] or by_path["cigar_map"]
         rec.update(kstats[name])
         if paf_launches is not None:
@@ -1302,11 +1668,17 @@ def kernels_line(kstats, paf_launches=None, cigar_launches=None):
 def main(argv):
     import torch
 
-    if argv not in ([], ["kernels"]) and argv[:1] not in (["chain"],
-                                                           ["maps"]):
-        raise SystemExit(
-            "usage: chip_smoke.py [kernels | chain [TREE] | maps [TREE]]")
+    if argv not in ([], ["kernels"], ["profile"]) \
+            and argv[:1] not in (["chain"], ["maps"]):
+        raise SystemExit("usage: chip_smoke.py "
+                         "[kernels | profile | chain [TREE] | maps [TREE]]")
     rng = np.random.default_rng(2026)
+    if argv == ["profile"]:
+        phase_device()
+        profile_launches = phase_profiles(rng)
+        log(nvidia_smi_line())
+        print(json.dumps({"profile_launches": profile_launches}), flush=True)
+        return
     if argv[:1] == ["maps"]:
         phase_device()
         index, genomes, aligner, reads, truth, _ = phase_map(rng)
@@ -1320,8 +1692,10 @@ def main(argv):
         print(json.dumps({"chain_times": chain_times(
             rng, argv[1] if len(argv) > 1 else ".")}), flush=True)
         return
+    marks = [("start", time.perf_counter())]
     phase_device()
     kstats = phase_kernels(rng)
+    marks.append(("phases 1-2", time.perf_counter()))
     if argv:
         log(nvidia_smi_line())
         print(kernels_line(kstats), flush=True)
@@ -1329,11 +1703,20 @@ def main(argv):
     index, genomes, aligner, reads, truth, paf_launches = phase_map(rng)
     phase_card_vs_cpu(index, aligner, reads)
     phase_cap_overflow(index, reads)
+    marks.append(("phases 3-4", time.perf_counter()))
     cigar_launches, _ = phase_cigar_map(rng, index, genomes, aligner, reads,
                                         truth)
     phase_cigar_card_vs_cpu(index, aligner, reads)
+    marks.append(("phases 5-6", time.perf_counter()))
+    del index, genomes, aligner, reads, truth
+    profile_launches = phase_profiles(rng)
+    marks.append(("phases 7-8", time.perf_counter()))
+    log("wall time by phase (s): " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}"
+        for i, (name, t) in enumerate(marks[1:])))
     log(nvidia_smi_line())
-    print(kernels_line(kstats, paf_launches, cigar_launches), flush=True)
+    print(kernels_line(kstats, paf_launches, cigar_launches,
+                       profile_launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -626,6 +626,15 @@ def _bucket(x, lo=256):
     return b
 
 
+def require_device(device, owner: str) -> None:
+    """Raise if `device` names a CUDA device and none is available: an
+    entry point never falls back to the CPU on its own."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner}(device={str(device)!r}): no CUDA device is available; "
+            f'pass device="cpu" to run the plain PyTorch versions on the CPU')
+
+
 class MinimizerAligner:
     """End-to-end read mapper against a MinimizerIndex, on one torch device:
     the GPU unless the caller asks for `device="cpu"` (plain PyTorch versions
@@ -635,12 +644,7 @@ class MinimizerAligner:
                  params: AlignParams | None = None, *, device="cuda"):
         if index.seq_data is None:
             raise ValueError("index must keep target sequences")
-        if torch.device(device).type == "cuda" \
-                and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"MinimizerAligner(device={str(device)!r}): no CUDA device is "
-                f'available; pass device="cpu" to run the plain PyTorch '
-                f"versions on the CPU")
+        require_device(device, "MinimizerAligner")
         self.index = index
         self.params = params or AlignParams()
         self.meta = meta or SequenceMeta.single_assembly_per_sequence(

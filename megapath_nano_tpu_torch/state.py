@@ -1,7 +1,8 @@
-"""State of the map path carried across: the host index
-(`index_from_numpy`) and the device planes (`device_planes_from_numpy`).
-There are no weights on the map path; the minimizer index and the 4-bit
-packed reference are its state.
+"""State carried across from the TPU package: the host index
+(`index_from_numpy`), the reference DB of the taxon profile
+(`refdb_from_numpy`) and the device planes (`device_planes_from_numpy`).
+There are no weights on these paths; the reference DB (sequences, taxonomy,
+minimizer index) and the 4-bit packed reference are their state.
 
 The TPU package's MinimizerAligner keeps these arrays on its device (built
 on the host from the MinimizerIndex):
@@ -85,3 +86,19 @@ def index_from_numpy(src) -> MinimizerIndex:
         seq_names=list(src.seq_names),
         seq_data=arr(src.seq_data, np.int8),
         seq_offsets=arr(src.seq_offsets, np.int64))
+
+
+def refdb_from_numpy(src):
+    """Build the port's RefDB from any object with the same fields (the TPU
+    package's RefDB), field for field: the index through `index_from_numpy`,
+    not rebuilt, and the tables shared, not copied."""
+    # imported here: db.refdb imports align.pipeline, which imports this
+    from megapath_nano_tpu_torch.db.refdb import RefDB
+
+    return RefDB(
+        index=index_from_numpy(src.index),
+        seq_assembly=np.asarray(src.seq_assembly),
+        assembly_names=list(src.assembly_names),
+        assembly_lengths=np.asarray(src.assembly_lengths),
+        assembly_tax=np.asarray(src.assembly_tax),
+        tax_names=dict(src.tax_names))

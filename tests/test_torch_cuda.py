@@ -265,3 +265,97 @@ def test_chain_wrapper_two_threads_one_table(cuda):
         *args, chain.beta_tensor(k, bandwidth, cuda), window=32, **kw)
     for got in outs[0] + outs[1]:
         assert torch.equal(got, ref)
+
+
+def _profile_world():
+    """A small world for the taxon profile (the port's own modules only):
+    a dominant assembly sharing a segment with a low one of its genus, a
+    second genus of two close species, a human genome carrying a piece of
+    one assembly, and human reads."""
+    from megapath_nano_tpu_torch.db.refdb import RefDB
+    from megapath_nano_tpu_torch.utils.dna import mutate, random_sequence
+
+    rng = np.random.default_rng(12)
+    shared = random_sequence(rng, 4000)
+    g_a = np.concatenate([random_sequence(rng, 16000), shared])
+    g_b = np.concatenate([shared, random_sequence(rng, 12000)])
+    g_c = random_sequence(rng, 15000)
+    g_d = mutate(rng, g_c, 0.015, 0.0025, 0.0025)
+    human = np.concatenate([random_sequence(rng, 10000), g_c[4000:5500]])
+    db = RefDB.build([g_a, g_b, g_c, g_d], ["cA", "cB", "cC", "cD"],
+                     [0, 1, 2, 3], ["asmA", "asmB", "asmC", "asmD"],
+                     [(1, 10, 5), (2, 20, 5), (3, 30, 6), (4, 40, 6)])
+    human_db = RefDB.build([human], ["chrH"], [0], ["GRCh38"],
+                           [(9606, 9606, 9605)])
+    reads = []
+    for genome, n in ((g_a, 40), (g_c, 15), (g_d, 5), (human[:10000], 6)):
+        for _ in range(n):
+            s = int(rng.integers(0, len(genome) - 800))
+            reads.append(mutate(rng, genome[s: s + 800], 0.02, 0.01, 0.01))
+    return reads, db, human_db
+
+
+def _same_report_files(dir_a, dir_b):
+    import os
+    import tarfile
+
+    names = sorted(os.listdir(dir_a))
+    assert names == sorted(os.listdir(dir_b))
+    for n in names:
+        a, b = os.path.join(dir_a, n), os.path.join(dir_b, n)
+        if n.endswith(".tar.gz"):
+            with tarfile.open(a) as ta, tarfile.open(b) as tb:
+                assert ta.getnames() == tb.getnames(), n
+                for m in ta.getmembers():
+                    if m.isfile():
+                        assert ta.extractfile(m).read() == \
+                            tb.extractfile(m.name).read(), (n, m.name)
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read(), n
+    return names
+
+
+@pytest.mark.parametrize("emit_cigars", [True, False])
+def test_profile_card_matches_cpu(cuda, emit_cigars, tmp_path):
+    """TaxonProfiler on the card and on the CPU (plain versions), with the
+    noise stack's gates on: every AlignList of the result equal in all 18
+    fields and cigar_map, the same noise sources, marks and projections,
+    and the same report files; the maps of the card run launch the
+    kernels."""
+    from megapath_nano_tpu_torch.taxon.profiler import (ProfileOptions,
+                                                         TaxonProfiler)
+
+    reads, db, human_db = _profile_world()
+    opts = ProfileOptions(
+        emit_cigars=emit_cigars, human_filter=True, spike_filter=True,
+        microbe_repetitive_filter=True, similar_species_marker=True,
+        noise_projection=True, noise_projection_reads=120,
+        unique_alignment=True)
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = (sw.banded_sw_scores.launches, chain.chain_and_extents.launches)
+        prof = TaxonProfiler(db, opts, human_db=human_db, device=device)
+        res = prof.profile(reads)
+        launched = (sw.banded_sw_scores.launches - before[0],
+                    chain.chain_and_extents.launches - before[1])
+        prof.write_reports(res, str(tmp_path / device), "p",
+                           read_lengths=np.array([len(r) for r in reads]),
+                           reads=reads)
+        out[device] = (res, launched)
+    (gpu, launched), (cpu, none) = out["cuda"], out["cpu"]
+    assert launched[0] > 0 and launched[1] > 0 and none == (0, 0)
+    for name in ("align_list", "best", "human_best", "pre_noise_best"):
+        a, b = getattr(gpu, name), getattr(cpu, name)
+        assert np.array_equal(a.data, b.data), name
+        assert a.cigar_map == b.cigar_map, name
+    assert len(gpu.best) > 0 and len(gpu.human_read_ids) >= 5
+    assert gpu.noise_sources.keys() == cpu.noise_sources.keys()
+    for k in gpu.noise_sources:
+        assert np.array_equal(gpu.noise_sources[k], cpu.noise_sources[k])
+    assert np.array_equal(gpu.stat, cpu.stat)
+    assert gpu.similar_marks == cpu.similar_marks
+    assert [vars(p) for p in gpu.noise_projections] == \
+        [vars(p) for p in cpu.noise_projections]
+    assert "p.preport" in _same_report_files(str(tmp_path / "cuda"),
+                                             str(tmp_path / "cpu"))

@@ -34,7 +34,20 @@ def test_package_imports_without_jax():
             "megapath_nano_tpu_torch.align.anchors",
             "megapath_nano_tpu_torch.align.records",
             "megapath_nano_tpu_torch.report.samout",
-            "megapath_nano_tpu_torch.utils.dna"} <= set(names)
+            "megapath_nano_tpu_torch.utils.dna",
+            "megapath_nano_tpu_torch.utils.log",
+            "megapath_nano_tpu_torch.native.ssw",
+            "megapath_nano_tpu_torch.io.fastq",
+            "megapath_nano_tpu_torch.io.adapters",
+            "megapath_nano_tpu_torch.db.refdb",
+            "megapath_nano_tpu_torch.report.writers",
+            "megapath_nano_tpu_torch.report.histograms",
+            "megapath_nano_tpu_torch.sim.simulator",
+            "megapath_nano_tpu_torch.cli.main"} <= set(names)
+    assert {f"megapath_nano_tpu_torch.taxon.{m}" for m in (
+        "intervals", "abundance", "best_align", "filters", "reassign",
+        "noise_stats", "bed_cache", "assembly_selection", "profiler",
+        "genome_filters", "noise_projection")} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
