@@ -16,13 +16,17 @@ failure:
    at band 256 on 1024 pairs of 4 kb, at band 512 on 256 pairs of 8 kb;
    banded_sw_scores at 1024 x 1 kb band 128 (the CIGAR path's shape),
    1024 x 4 kb band 256, 128 x 16 kb band 512 and 8 x 40 kb band 512 (the
-   40 kb map's call); both on edge cases, on a ragged batch (1027 pairs,
+   40 kb map's call); the bands above 1024, which only the block-per-pair
+   forms serve: banded_sw_full at band 2048 on 64 x 4 kb, banded_sw_scores
+   at band 2048 on 64 x 8 kb and at band 1152 on 64 x 2 kb; both on edge
+   cases, on a ragged batch (1027 pairs,
    read lengths 0..1024), on a batch shaped like the fused PAF launch
    (8192 pairs, most of them with read length 0) and on a tie-heavy batch
    (homopolymers, N stretches, refs of 0..3 bases). Every extension batch
    goes through the wrapper and through both forms of its kernel (a warp
-   per pair, a block per pair), and the two forms are timed in turn:
-   block, warp, warp, block. chain_and_extents on 16384 groups x 32
+   per pair, a block per pair; the block form alone where the band has no
+   warp form), and the two forms are timed in turn: block, warp, warp,
+   block. chain_and_extents on 16384 groups x 32
    anchors, 4096 x 256, on groups that read every entry of the gap-cost
    table, on int16 planes, on rows of 33, 100 and 512 anchors, with windows
    of 1, 7 and 31, on a batch of empty groups and on counts beyond the row
@@ -78,16 +82,40 @@ failure:
    once with --device cpu (plain versions; a child process at low priority
    started before phase 7, since it takes minutes): every output file equal
    (archives member by member, .timing aside); sw_scores launched.
+9. AMR through the CLI: 8 genomes of 4 Mbp (4 genera x 2 species, 3-8%
+   from their genus ancestor) and a 64 kb plasmid in species 1's assembly,
+   a RefDB built and saved by cli.build_db ref; a gene DB of 3000 genes
+   built by cli.build_db amr (24 genes cut from the genomes: 16 from the
+   chromosomes of the 6 species of genera 1-3, 4 from the plasmid, 4 from
+   genus 4, whose species get no reads; a homolog of each at 20%
+   substitutions; random genes; 1-3 drugs a gene); 12288 reads of 1 kb at
+   6% error (4096 over the 6 species, 6144 around the 16 chromosomal loci,
+   2048 from the plasmid). cli.main --amr_db --no_adaptor_trimming on the
+   card, under torch.profiler: the 20 genes of the present species and the
+   plasmid in results.csv with all their drugs, no other gene; the
+   .species.sam written; sw_scores and chain launched inside the amr step
+   (launches counted by step). Then cli.amr on that .species.sam's records
+   on species 0's chromosome and the plasmid with --device cuda and
+   --device cpu (a child process): results.csv byte-equal.
+10. Phase 9's RefDB and its 4096 whole-genome reads through the CLI
+   (--no_amr --no_adaptor_trimming), monolithic and with --index_shards 4:
+   the .preport byte-equal, sw_full and chain launched in the sharded run.
+   ShardedAligner over 4 shards on 256 of those reads, card against CPU:
+   all 18 fields equal.
 
 The last line of output is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record, whose `launches_by_path` counts each
-kernel's launches in the PAF map, the CIGAR map and the profile (phase 7 and
-phase 8's card run).
+kernel's launches in the PAF map, the CIGAR map, the profile (phase 7 and
+phase 8's card run), phase 9's amr step and phase 10's sharded run.
 
     python3 chip_smoke.py profile
 
 runs phases 1, 7 and 8 only and ends with a {"profile_launches": {...}}
 line.
+
+    python3 chip_smoke.py amr
+
+runs phases 1, 9 and 10 only and ends with an {"amr_launches": {...}} line.
 
     python3 chip_smoke.py kernels
 
@@ -474,15 +502,16 @@ def check_sw(kind, name, arrays, band, kernel_iters=5):
     out = {}
     plain_ms = cuda_ms(lambda: out.update(ref=plain()), 1)
     err = 0
-    for label, fn in (("", kernel), (" [warp per pair]", form(sw.FORM_WARP)),
-                      (" [block per pair]", form(sw.FORM_BLOCK))):
+    # bands other than 128, 256 and 512 have the block form only
+    warp = band in sw.WARP_BANDS
+    forms = [("", kernel)] + ([(" [warp per pair]", form(sw.FORM_WARP))]
+                              if warp else []) \
+        + [(" [block per pair]", form(sw.FORM_BLOCK))]
+    for label, fn in forms:
         got = fn()
         torch.cuda.synchronize()
         err = max(err, require_equal(name + label, got, out["ref"]))
     ms = cuda_ms(kernel, kernel_iters)
-    turns = [cuda_ms(form(which), kernel_iters) for which in
-             (sw.FORM_BLOCK, sw.FORM_WARP, sw.FORM_WARP, sw.FORM_BLOCK)]
-    block_ms, warp_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     n, q = arrays[0].shape
     rows = int(np.minimum(arrays[1], q).astype(np.int64).sum())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -490,10 +519,17 @@ def check_sw(kind, name, arrays, band, kernel_iters=5):
         f"{bnd[0]:.4f} ms by {bnd[1]} ({n} pairs x {q} rows, band {band}; "
         f"{rows * band / ms / 1e6:.2f} Gcell/s, "
         f"{rows / ms / sms / 1e3:.3f} Mrow/s per SM)")
+    rec = kernel_record(err, ms, plain_ms, bnd)
+    if not warp:
+        log(f"  {name}: block per pair only (this card takes bands up to "
+            f"{sw.block_max_band(f'mpn_sw_{kind}', 0)} in that form)")
+        return rec
+    turns = [cuda_ms(form(which), kernel_iters) for which in
+             (sw.FORM_BLOCK, sw.FORM_WARP, sw.FORM_WARP, sw.FORM_BLOCK)]
+    block_ms, warp_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     log(f"  {name}: kernel alone, in turn block, warp, warp, block: "
         + ", ".join(f"{t:.3f}" for t in turns)
         + f" ms; block per pair {block_ms:.3f}, warp per pair {warp_ms:.3f}")
-    rec = kernel_record(err, ms, plain_ms, bnd)
     # prev_ms: the block-per-pair form, which was the whole kernel before
     # the warp-per-pair form existed
     rec.update(prev_ms=block_ms, warp_ms=warp_ms)
@@ -725,7 +761,10 @@ def phase_kernels(rng):
                      128),
             check_sw("full", "sw_full ragged, 1027 pairs", ragged, 128),
             check_sw("full", "sw_full fused-launch shape, 8192 pairs", fused,
-                     128)],
+                     128),
+            check_sw("full", "sw_full band 2048, 64 x 4 kb",
+                     sw_batch(rng, 64, 4096, 6144, 0.06), 2048,
+                     kernel_iters=2)],
         "banded_sw_scores": [
             check_sw("scores", "sw_scores band 256, 1024 x 4 kb",
                      sw_batch(rng, 1024, 4096, 8192, 0.06), 256),
@@ -740,7 +779,13 @@ def phase_kernels(rng):
                      ties, 128),
             check_sw("scores", "sw_scores ragged, 1027 pairs", ragged, 128),
             check_sw("scores", "sw_scores fused-launch shape, 8192 pairs",
-                     fused, 128)],
+                     fused, 128),
+            check_sw("scores", "sw_scores band 2048, 64 x 8 kb",
+                     sw_batch(rng, 64, 8192, 10240, 0.06), 2048,
+                     kernel_iters=2),
+            check_sw("scores", "sw_scores band 1152, 64 x 2 kb",
+                     sw_batch(rng, 64, 2048, 3200, 0.06), 1152,
+                     kernel_iters=2)],
     }
     chain = check_chain("chain 16384 x 32", chain_groups(rng, 16384),
                         plain_iters=2)
@@ -1365,19 +1410,26 @@ def save_refdb(genomes, tax, tax_names, prefix, path):
         f"saved in {time.perf_counter() - t1:.1f} s")
 
 
+def kernel_wrappers():
+    """{kernel name: its wrapper}; each wrapper counts its launches in
+    `.launches`."""
+    from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
+    from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
+                                                    banded_sw_scores)
+
+    return {"banded_sw_full": banded_sw_full,
+            "chain_and_extents": chain_and_extents,
+            "banded_sw_scores": banded_sw_scores}
+
+
 def run_cli(args):
     """megapath_nano_tpu_torch.cli.main.main(args) with the three launch
     counts set to 0 before. Returns (wall s, launches)."""
     import torch
 
     from megapath_nano_tpu_torch.cli.main import main as cli_main
-    from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
-    from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
-                                                    banded_sw_scores)
 
-    kernels = {"banded_sw_full": banded_sw_full,
-               "chain_and_extents": chain_and_extents,
-               "banded_sw_scores": banded_sw_scores}
+    kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
@@ -1545,21 +1597,22 @@ def noise_inputs(rng, work):
 
 
 class BackgroundCli:
-    """The CLI in a child process at low priority (nice 10, 6 torch
-    threads), so that phase 8's CPU run (plain versions, minutes) overlaps
-    the card's phases, which keep a core or two of the host's eight busy.
-    stop() kills the child if it still runs."""
+    """A CLI of the port (cli.main unless `module` names another) in a
+    child process at low priority (nice 10, `threads` torch threads), so
+    that a CPU run (plain versions, minutes) overlaps the card's phases,
+    which keep a core or two of the host's eight busy. stop() kills the
+    child if it still runs."""
 
-    def __init__(self, args, log_path):
-        env = dict(os.environ, OMP_NUM_THREADS="6",
+    def __init__(self, args, log_path,
+                 module="megapath_nano_tpu_torch.cli.main", threads=6):
+        env = dict(os.environ, OMP_NUM_THREADS=str(threads),
                    PYTHONPATH=os.pathsep.join(
                        [sys.path[0], os.environ.get("PYTHONPATH", "")]))
         self.log_path = log_path
         self._log = open(log_path, "w")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            ["nice", "-n", "10", sys.executable, "-m",
-             "megapath_nano_tpu_torch.cli.main", *args],
+            ["nice", "-n", "10", sys.executable, "-m", module, *args],
             env=env, stdout=self._log, stderr=subprocess.STDOUT)
 
     def wait(self, timeout):
@@ -1614,12 +1667,13 @@ def phase_profile_noise(work, args, cpu_run):
     return launches
 
 
-def phase_profiles(rng):
+def phase_profiles(rng, between=None):
     """Phases 7 and 8 in a scratch directory that is removed after: phase
     8's inputs first and its CPU run started in the background, then phase
-    7, then phase 8's card run and the comparison. Returns the kernels'
-    launch counts on the profile path: phase 7's run and phase 8's card
-    run."""
+    7, then `between()` (the full smoke's phases 9 and 10, which so overlap
+    the CPU run instead of waiting after it), then phase 8's card run and
+    the comparison. Returns (the kernels' launch counts on the profile
+    path: phase 7's run and phase 8's card run; between()'s result)."""
     with tempfile.TemporaryDirectory(prefix="mpn_profile_") as work:
         args = noise_inputs(rng, work)
         cpu_run = BackgroundCli(
@@ -1627,10 +1681,412 @@ def phase_profiles(rng):
              "--device", "cpu"], os.path.join(work, "noise_cpu.log"))
         try:
             launches7 = phase_profile(rng, work)
+            got = between() if between else None
             launches8 = phase_profile_noise(work, args, cpu_run)
         finally:
             cpu_run.stop()
-    return {k: launches7[k] + launches8[k] for k in launches7}
+    return {k: launches7[k] + launches8[k] for k in launches7}, got
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: AMR through the CLI, and the sharded index
+
+
+# phase 9's world: genome and plasmid lengths, genes in the DB, reads over
+# the 6 species' genomes, around the 16 chromosomal loci and from the
+# plasmid; phase 10's reads for ShardedAligner card against CPU
+AMR_SIZES = dict(genome=4_000_000, plasmid=64_000, genes=3000, whole=4096,
+                 local=6144, plasmid_reads=2048, shard_reads=256)
+# the device of the phases' card runs; their CPU runs name "cpu"
+CARD = "cuda"
+# the drugs of phase 9's gene DB, already in canonical form (no trailing
+# "s", no dash: amr.db.canonical_drug leaves them as they are)
+AMR_DRUGS = ("AMIKACIN", "AMPICILLIN", "CEFTAZIDIME", "CHLORAMPHENICOL",
+             "CIPROFLOXACIN", "COLISTIN", "ERYTHROMYCIN", "GENTAMICIN",
+             "MEROPENEM", "RIFAMPICIN", "TETRACYCLINE", "VANCOMYCIN")
+
+
+class StepLaunches:
+    """Count the three kernels' launches inside every step of a CLI run:
+    Log.step of the port is wrapped so that each step adds the launches
+    made between its start and its end to launches[step name]. The AMR
+    module's run_amr is wrapped as well, to keep its consensus contigs'
+    lengths, and the parts of the amr step are timed on the host clock
+    (seconds[name]): the gene DBs' load and run_amr's consensus and
+    scan."""
+
+    def __init__(self):
+        from megapath_nano_tpu_torch.amr import module as amr_module
+        from megapath_nano_tpu_torch.amr.db import AMRGeneDB
+        from megapath_nano_tpu_torch.utils.log import Log
+
+        self.kernels = kernel_wrappers()
+        self.launches, self.contigs = {}, []
+        self._log, self._step = Log, Log.step
+        self._module = amr_module
+        self._run_amr = amr_module.run_amr
+        # name -> (owner, attribute, the attribute as stored, the function)
+        self._timed = {
+            name: (owner, attr, vars(owner)[attr], getattr(owner, attr))
+            for name, owner, attr in (
+                ("AMRGeneDB.load", AMRGeneDB, "load"),
+                ("consensus_contigs", amr_module, "consensus_contigs"),
+                ("scan_contigs", amr_module, "scan_contigs"))}
+        self.seconds = dict.fromkeys(self._timed, 0.0)
+
+    def __enter__(self):
+        import contextlib
+
+        outer, step = self, self._step
+
+        @contextlib.contextmanager
+        def counted(log_self, name):
+            before = {k: f.launches for k, f in outer.kernels.items()}
+            with step(log_self, name):
+                yield
+            got = outer.launches.setdefault(name, dict.fromkeys(before, 0))
+            for k, f in outer.kernels.items():
+                got[k] += f.launches - before[k]
+
+        def run_amr(*args, **kw):
+            res = outer._run_amr(*args, **kw)
+            outer.contigs = [len(c.seq) for c in res.contigs]
+            return res
+
+        def timed(name, fn):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    outer.seconds[name] += time.perf_counter() - t0
+            return call
+
+        self._log.step = counted
+        self._module.run_amr = run_amr
+        for name, (owner, attr, stored, fn) in self._timed.items():
+            call = timed(name, fn)
+            setattr(owner, attr, staticmethod(call)
+                    if isinstance(stored, staticmethod) else call)
+        return self
+
+    def __exit__(self, *exc):
+        self._log.step = self._step
+        self._module.run_amr = self._run_amr
+        for owner, attr, stored, _ in self._timed.values():
+            setattr(owner, attr, stored)
+
+
+def cut_gene(rng, genome, lo=800, hi=1500, margin=10_000):
+    n = int(rng.integers(lo, hi + 1))
+    s = int(rng.integers(margin, len(genome) - margin - n))
+    return genome[s: s + n].copy(), s
+
+
+def amr_world(rng, work):
+    """Phase 9's inputs, written under `work`: 8 genomes of 4 Mbp (4 genera
+    x 2 species, 3-8% from their genus ancestor) and a 64 kb plasmid as the
+    second sequence of species 1's assembly, as FASTA with a metadata
+    table; a gene DB of 3000 genes as FASTA with a phenotype table (24
+    genes of 800-1500 b: 16 cut from the chromosomes of the 6 species of
+    genera 1-3, 4 from the plasmid, 4 from the 2 species of genus 4, which
+    get no reads; a homolog of each at 20% substitutions; random genes for
+    the rest; 1-3 drugs a gene of 12); 12288 reads of 1 kb at 6% error
+    (4096 over the 6 species' genomes, 6144 from +-6 kb around the 16
+    chromosomal loci, 2048 from the plasmid) as FASTQ. Returns (paths,
+    {present gene: drugs}, names of the genes that must not be called, the
+    4096 whole-genome reads)."""
+    from megapath_nano_tpu_torch.io.fastq import write_fasta
+
+    t0 = time.perf_counter()
+    size = AMR_SIZES
+    genomes, tax, tax_names = taxon_world(rng, 4, 2, size["genome"])
+    plasmid = rng.integers(0, 4, size["plasmid"]).astype(np.int8)
+    fastas = []
+    for i, g in enumerate(genomes):
+        path = os.path.join(work, f"asm{i}.fna")
+        names, seqs = [f"chr{i}"], [g]
+        if i == 1:
+            names, seqs = names + ["plasmid1"], seqs + [plasmid]
+        write_fasta(path, names, seqs)
+        fastas.append(path)
+    meta = os.path.join(work, "assemblies.tsv")
+    with open(meta, "w") as f:
+        for i, (t, sp, gn) in enumerate(tax):
+            f.write(f"asm{i}\t{t}\t{sp}\t{gn}\t{tax_names[sp]}\n")
+
+    genes, names, present = [], [], {}
+    loci = []                       # (species, start, length) of each locus
+    per_species = (3, 3, 3, 3, 2, 2)
+    for sp, k in enumerate(per_species):
+        for _ in range(k):
+            gene, s = cut_gene(rng, genomes[sp])
+            loci.append((sp, s, len(gene)))
+            genes.append(gene)
+            names.append(f"amrC{len(names)}")
+    for _ in range(4):
+        genes.append(cut_gene(rng, plasmid, margin=2000)[0])
+        names.append(f"amrP{len(names)}")
+    for sp in (6, 6, 7, 7):
+        genes.append(cut_gene(rng, genomes[sp])[0])
+        names.append(f"amrA{len(names)}")
+    for j in range(24):
+        hom = genes[j].copy()
+        hit = rng.random(len(hom)) < 0.20
+        hom[hit] = (hom[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+        genes.append(hom)
+        names.append(f"hom{j}")
+    while len(genes) < size["genes"]:
+        genes.append(rng.integers(0, 4, int(rng.integers(800, 1501))
+                                  ).astype(np.int8))
+        names.append(f"rnd{len(genes)}")
+    drugs = [[str(d) for d in rng.choice(AMR_DRUGS, int(rng.integers(1, 4)),
+                                         replace=False)] for _ in genes]
+    present = {names[j]: drugs[j] for j in range(20)}
+    absent = set(names[20:])
+    gene_fa = os.path.join(work, "genes.fna")
+    write_fasta(gene_fa, names, genes)
+    pheno = os.path.join(work, "pheno.tsv")
+    with open(pheno, "w") as f:
+        for n, d in zip(names, drugs):
+            f.write(f"{n}\t{';'.join(d)}\n")
+
+    n_whole = size["whole"]
+    whole, _ = mixed_reads(rng, genomes[:6], [n_whole // 6] * 5
+                           + [n_whole - 5 * (n_whole // 6)], 1000, 0.06)
+    around = [genomes[sp][s - 6000: s + n + 6000] for sp, s, n in loci]
+    local, _ = mixed_reads(rng, around, [size["local"] // 16] * 16, 1000,
+                           0.06)
+    plas, _ = mixed_reads(rng, [plasmid], [size["plasmid_reads"]], 1000,
+                          0.06)
+    reads = whole + local + plas
+    order = rng.permutation(len(reads))
+    query = os.path.join(work, "amr_reads.fastq")
+    write_query(query, [reads[i] for i in order], rng)
+    query4096 = os.path.join(work, "genome_reads.fastq")
+    write_query(query4096, whole, rng)
+    log(f"  world, gene DB and reads written in "
+        f"{time.perf_counter() - t0:.1f} s: {len(genomes)} genomes + a "
+        f"{len(plasmid)} b plasmid, {len(genes)} genes, {len(reads)} reads")
+    return (dict(fastas=fastas, meta=meta, genes=gene_fa, pheno=pheno,
+                 query=query, query4096=query4096), present, absent, whole)
+
+
+def build_dbs(paths, work):
+    """The RefDB and the gene DB, built and saved by the port's
+    cli.build_db. Returns their directories."""
+    from megapath_nano_tpu_torch.cli import build_db
+
+    refdb, amrdb = os.path.join(work, "refdb"), os.path.join(work, "amrdb")
+    t0 = time.perf_counter()
+    argv = ["ref", "--metadata", paths["meta"], "--out", refdb]
+    for fa in paths["fastas"]:
+        argv += ["--fasta", fa]
+    if build_db.main(argv) != 0:
+        raise AssertionError("build_db ref failed")
+    t1 = time.perf_counter()
+    if build_db.main(["amr", "--name", "resfinder", "--fasta",
+                      paths["genes"], "--phenotypes", paths["pheno"],
+                      "--out", amrdb]) != 0:
+        raise AssertionError("build_db amr failed")
+    log(f"  cli.build_db: ref {t1 - t0:.1f} s, amr "
+        f"{time.perf_counter() - t1:.1f} s")
+    return refdb, amrdb
+
+
+def check_amr_results(path, present, absent):
+    """Every present gene in results.csv, in the row of each of its drugs;
+    no gene that must not be called anywhere in the file."""
+    with open(path) as f:
+        rows = {line.split(",", 1)[0]: line for line in f.read().splitlines()}
+    missing = [(g, d) for g, drugs in present.items() for d in drugs
+               if f"{g}[" not in rows.get(d, "")]
+    text = "\n".join(rows.values())
+    wrong = sorted(g for g in absent if f"{g}[" in text)
+    log(f"  results.csv: {len(rows) - 1} antibiotics; "
+        f"{len(present) - len({g for g, _ in missing})}/{len(present)} "
+        f"present genes called with all their drugs; {len(wrong)} of the "
+        f"{len(absent)} absent, homolog and random genes called")
+    if missing or wrong:
+        raise AssertionError(f"AMR calls wrong: missing (gene, drug) "
+                             f"{missing[:8]}, called but absent {wrong[:8]}")
+
+
+def run_cli_amr(device, query_sam, refdb, amrdb, out):
+    """megapath_nano_tpu_torch.cli.amr.main in this process. Returns (wall
+    s, launches)."""
+    import torch
+
+    from megapath_nano_tpu_torch.cli import amr as cli_amr
+
+    kernels = kernel_wrappers()
+    before = {k: f.launches for k, f in kernels.items()}
+    t0 = time.perf_counter()
+    rc = cli_amr.main(["--query_sam", query_sam, "--db", refdb, "--amr_db",
+                       amrdb, "--output_folder", out, "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = {k: f.launches - before[k] for k, f in kernels.items()}
+    if rc != 0:
+        raise AssertionError(f"cli.amr --device {device} exited with {rc}")
+    return dt, launched
+
+
+def phase_amr(rng, work):
+    """Phase 9: the CLI with --amr_db on the card, then cli.amr on its
+    .species.sam on the card (here) and on the CPU (a child process, which
+    runs on beside phase 10; compare_cli_amr waits for it). Returns (the
+    kernels' launches inside the amr step, the paths, the RefDB directory,
+    the 4096 whole-genome reads, (the CPU run, the two output
+    folders))."""
+    log("phase 9: AMR through the CLI at 32 Mbp, 3000 genes, on the card")
+    paths, present, absent, whole = amr_world(rng, work)
+    refdb, amrdb = build_dbs(paths, work)
+    out = os.path.join(work, "amr_out")
+    with StepLaunches() as steps:
+        (dt, launches), _, busy_ms, n_events, _ = traced(lambda: run_cli(
+            ["--query", paths["query"], "--db", refdb, "--amr_db", amrdb,
+             "--no_adaptor_trimming", "--output_folder", out,
+             "--output_prefix", "p", "--device", CARD]))
+    log(f"  cli.main --amr_db: {dt:.3f} s wall; launches {launches}")
+    if busy_ms is not None:
+        log(f"  profiler: {n_events} device events, device busy (union) "
+            f"{busy_ms:.2f} ms, idle share "
+            f"{100 - 100 * busy_ms / (1e3 * dt):.3f}% of the run's wall")
+    log_timing(os.path.join(out, "p.timing"))
+    log("  launches by step: " + "; ".join(
+        f"{name} {got}" for name, got in steps.launches.items()))
+    contigs = steps.contigs
+    log(f"  consensus contigs: {len(contigs)}, longest "
+        f"{max(contigs, default=0)} b, {sum(contigs)} b in all")
+    log("  amr step, host clock: " + ", ".join(
+        f"{name} {sec:.3f} s" for name, sec in steps.seconds.items()))
+    amr = steps.launches.get("amr", {})
+    if amr.get("banded_sw_scores", 0) < 1 or amr.get("chain_and_extents",
+                                                     0) < 1:
+        raise AssertionError(f"the amr step did not launch sw_scores and "
+                             f"chain: {amr}")
+    sam = os.path.join(out, "p.species.sam")
+    if not os.path.exists(sam):
+        raise AssertionError("p.species.sam not written")
+    check_amr_results(os.path.join(out, "p.results.csv"), present, absent)
+
+    # the comparison runs on the records of species 0's chromosome and the
+    # plasmid (7 genes): cli.amr's consensus walks every base of each
+    # aligned target in Python, some 10 s a 4 Mbp genome
+    sam = sam_subset(sam, os.path.join(work, "chr0_plasmid.sam"),
+                     {"chr0", "plasmid1"})
+    cpu_out = os.path.join(work, "cli_amr_cpu")
+    cpu_run = BackgroundCli(["--query_sam", sam, "--db", refdb, "--amr_db",
+                             amrdb, "--output_folder", cpu_out, "--device",
+                             "cpu"], os.path.join(work, "cli_amr_cpu.log"),
+                            module="megapath_nano_tpu_torch.cli.amr",
+                            threads=2)
+    card_out = os.path.join(work, "cli_amr_card")
+    dt, got = run_cli_amr(CARD, sam, refdb, amrdb, card_out)
+    log(f"  cli.amr --device {CARD}: {dt:.3f} s; launches {got}")
+    if got["banded_sw_scores"] < 1 or got["chain_and_extents"] < 1:
+        raise AssertionError(f"cli.amr on the card did not launch sw_scores "
+                             f"and chain: {got}")
+    return amr, paths, refdb, whole, (cpu_run, card_out, cpu_out)
+
+
+def sam_subset(src, dst, names):
+    """Write the SAM `src`'s header and its records on the sequences
+    `names` to `dst`; returns dst."""
+    with open(src) as f, open(dst, "w") as out:
+        for line in f:
+            if line.startswith("@") or line.split("\t", 3)[2] in names:
+                out.write(line)
+    return dst
+
+
+def compare_cli_amr(cpu_run, card_out, cpu_out):
+    """Wait for phase 9's cli.amr CPU run (a child process started with the
+    card's) and hold its results.csv to the card's, byte for byte."""
+    wall = cpu_run.wait(timeout=900)
+    log(f"  cli.amr --device cpu (child process): {wall:.3f} s from its "
+        f"start to its end")
+    csv = {}
+    for side, d_out in (("card", card_out), ("cpu", cpu_out)):
+        with open(os.path.join(d_out, "amr.results.csv"), "rb") as f:
+            csv[side] = f.read()
+    if csv["card"] != csv["cpu"]:
+        raise AssertionError("cli.amr results.csv differs between the card "
+                             "and the CPU")
+    log(f"  cli.amr results.csv equal between the card and the CPU "
+        f"({len(csv['cpu'])} B, {csv['cpu'].count(b'[')} gene calls)")
+
+
+def phase_sharded(paths, refdb, whole, work):
+    """Phase 10: phase 9's RefDB and its 4096 whole-genome reads through
+    the CLI, monolithic and with --index_shards 4 (the same .preport), then
+    ShardedAligner over 4 shards on 256 of the reads, card against CPU.
+    Returns the kernels' launches in the sharded CLI run."""
+    from megapath_nano_tpu_torch.db.refdb import RefDB
+    from megapath_nano_tpu_torch.dist.sharded_aligner import ShardedAligner
+
+    log("phase 10: the sharded index (4 shards) against the monolithic one")
+    common = ["--query", paths["query4096"], "--db", refdb, "--no_amr",
+              "--no_adaptor_trimming", "--output_prefix", "p", "--device",
+              CARD]
+    outs, launches = {}, {}
+    for label, extra in (("monolithic", []),
+                         ("sharded", ["--index_shards", "4"])):
+        outs[label] = os.path.join(work, f"out_{label}")
+        dt, launches[label] = run_cli(common + extra
+                                      + ["--output_folder", outs[label]])
+        log(f"  cli.main {label}: {dt:.3f} s wall; launches "
+            f"{launches[label]}")
+        log_timing(os.path.join(outs[label], "p.timing"))
+    with open(os.path.join(outs["monolithic"], "p.preport"), "rb") as f:
+        mono = f.read()
+    with open(os.path.join(outs["sharded"], "p.preport"), "rb") as f:
+        shard = f.read()
+    if mono != shard:
+        raise AssertionError(".preport differs between the monolithic and "
+                             "the sharded index")
+    rows = mono.count(b"\n") - 1
+    log(f"  .preport equal, monolithic vs 4 shards ({rows} species rows)")
+    got = launches["sharded"]
+    if got["banded_sw_full"] < 1 or got["chain_and_extents"] < 1:
+        raise AssertionError(f"the sharded run did not launch sw_full and "
+                             f"chain: {got}")
+
+    db = RefDB.load(refdb)
+    idx = db.index
+    seqs = [idx.seq_data[idx.seq_offsets[i]: idx.seq_offsets[i + 1]]
+            for i in range(len(idx.seq_names))]
+    res, n = {}, AMR_SIZES["shard_reads"]
+    for side, device in (("card", CARD), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        al = ShardedAligner.build(
+            seqs, list(idx.seq_names), db.sequence_meta.assembly_idx,
+            db.assembly_names, 4, meta=db.sequence_meta, k=idx.k, w=idx.w,
+            device=device)
+        t1 = time.perf_counter()
+        res[side] = al.map_reads(whole[:n])
+        log(f"  ShardedAligner --device {device}: built in {t1 - t0:.1f} s, "
+            f"{n} reads mapped in {time.perf_counter() - t1:.1f} s, "
+            f"{len(res[side].data)} records")
+    require_same_records("ShardedAligner card vs CPU", res["card"],
+                         res["cpu"])
+    return got
+
+
+def phase_amr_sharded(rng):
+    """Phases 9 and 10 in a scratch directory that is removed after.
+    Returns {"amr": launches in phase 9's amr step, "sharded": launches in
+    phase 10's sharded CLI run}."""
+    with tempfile.TemporaryDirectory(prefix="mpn_amr_") as work:
+        amr, paths, refdb, whole, cli_amr_cpu = phase_amr(rng, work)
+        try:
+            sharded = phase_sharded(paths, refdb, whole, work)
+            compare_cli_amr(*cli_amr_cpu)
+        finally:
+            cli_amr_cpu[0].stop()
+    return {"amr": amr, "sharded": sharded}
 
 
 def nvidia_smi_line():
@@ -1641,21 +2097,24 @@ def nvidia_smi_line():
 
 
 def kernels_line(kstats, paf_launches=None, cigar_launches=None,
-                 profile_launches=None):
+                 profile_launches=None, amr_launches=None):
     """The per-kernel records as one JSON line. With the launch counts of
     the paths: {"kernels": [...]}, each record with `launches` (the count
     from the kernel's own map path: the PAF-mode map for sw_full and chain,
     the CIGAR-mode map for sw_scores) and every path's counts in
-    `launches_by_path` (the two maps, and the taxon profile: phase 7's run
-    and phase 8's card run together). Without them (no map ran):
-    {"kernel_checks": [...]}, the records without those two keys."""
+    `launches_by_path` (the two maps; the taxon profile: phase 7's run and
+    phase 8's card run together; phase 9's amr step; phase 10's sharded
+    run). Without them (no map ran): {"kernel_checks": [...]}, the records
+    without those two keys."""
     kernels = []
     for name, (src, rep) in KERNELS.items():
         rec = {"name": name, "route": "cuda", "source": src, "replaces": rep}
         if paf_launches is not None:
             by_path = {"paf_map": paf_launches[name],
                        "cigar_map": cigar_launches[name],
-                       "profile": profile_launches[name]}
+                       "profile": profile_launches[name],
+                       "amr": amr_launches["amr"][name],
+                       "sharded": amr_launches["sharded"][name]}
             rec["launches"] = by_path["paf_map"] or by_path["cigar_map"]
         rec.update(kstats[name])
         if paf_launches is not None:
@@ -1668,16 +2127,25 @@ def kernels_line(kstats, paf_launches=None, cigar_launches=None,
 def main(argv):
     import torch
 
-    if argv not in ([], ["kernels"], ["profile"]) \
+    if argv not in ([], ["kernels"], ["profile"], ["amr"]) \
             and argv[:1] not in (["chain"], ["maps"]):
-        raise SystemExit("usage: chip_smoke.py "
-                         "[kernels | profile | chain [TREE] | maps [TREE]]")
+        raise SystemExit("usage: chip_smoke.py [kernels | profile | amr | "
+                         "chain [TREE] | maps [TREE]]")
     rng = np.random.default_rng(2026)
     if argv == ["profile"]:
         phase_device()
-        profile_launches = phase_profiles(rng)
+        profile_launches, _ = phase_profiles(rng)
         log(nvidia_smi_line())
         print(json.dumps({"profile_launches": profile_launches}), flush=True)
+        return
+    if argv == ["amr"]:
+        t0 = time.perf_counter()
+        phase_device()
+        amr_launches = phase_amr_sharded(rng)
+        log(f"wall time of phases 1, 9 and 10: "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(nvidia_smi_line())
+        print(json.dumps({"amr_launches": amr_launches}), flush=True)
         return
     if argv[:1] == ["maps"]:
         phase_device()
@@ -1709,14 +2177,16 @@ def main(argv):
     phase_cigar_card_vs_cpu(index, aligner, reads)
     marks.append(("phases 5-6", time.perf_counter()))
     del index, genomes, aligner, reads, truth
-    profile_launches = phase_profiles(rng)
-    marks.append(("phases 7-8", time.perf_counter()))
+    # phases 9 and 10 run between 7 and 8, beside phase 8's CPU run
+    profile_launches, amr_launches = phase_profiles(
+        rng, between=lambda: phase_amr_sharded(rng))
+    marks.append(("phases 7-10", time.perf_counter()))
     log("wall time by phase (s): " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
     log(nvidia_smi_line())
     print(kernels_line(kstats, paf_launches, cigar_launches,
-                       profile_launches), flush=True)
+                       profile_launches, amr_launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-"""mpn-torch CLI: taxonomic profiling from a FASTQ, on the GPU.
+"""mpn-torch CLI: taxonomic profiling + AMR from a FASTQ, on the GPU.
 
 User-facing driver mirroring the reference's CLI surface
 (reference: bin/megapath_nano.py:4831-5146 argparse; usage README.md:111:
@@ -9,16 +9,14 @@ reference where the concept carries over.
       --query reads.fastq --db <refdb_dir> --output_folder out/ \
       [--output_prefix p] [--reassignment] [--spike_filter] ...
 
-The DB is a RefDB directory (`RefDB.build(...).save(dir)`; a DB saved by
-megapath_nano_tpu loads as it is).
+Build a RefDB first with `python -m megapath_nano_tpu_torch.cli.build_db`
+(a DB saved by megapath_nano_tpu loads as it is).
 
 The port's own copy of megapath_nano_tpu/cli/main.py, with the same flags
 and dests except one: `--backend` becomes `--device {cuda,cpu}` (default
-cuda; every map of the run goes to that device, and the default raises
-without a CUDA device). Two paths of the original are not ported yet and
-exit with code 2 instead of running: `--index_shards` > 1 (the sharded
-index, ROADMAP.md §1 item 4) and `--amr_db` with the AMR module on
-(ROADMAP.md §1 item 3).
+cuda; every map of the run goes to that device, the index shards of
+`--index_shards` and the AMR scans of `--amr_db` included, and the default
+raises without a CUDA device).
 """
 
 from __future__ import annotations
@@ -32,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mpn-torch",
         description="Long-read metagenomics on the GPU: taxonomic "
-                    "profiling")
+                    "profiling and AMR detection")
     p.add_argument("--query", required=True, action="append",
                    help="input FASTQ/FASTA(.gz); repeatable")
     p.add_argument("--db", required=True, help="RefDB directory")
@@ -326,19 +324,6 @@ def output_gates_from_args(args) -> set:
     return gates
 
 
-def _unported_path(args) -> str | None:
-    """The message for a requested path that the port does not have yet,
-    else None."""
-    if args.index_shards > 1:
-        return ("--index_shards > 1 needs the sharded index (dist/), which "
-                "is not ported yet (ROADMAP.md §1 item 4)")
-    if args.amr and args.amr_db:
-        return ("--amr_db needs the AMR module, which is not ported yet "
-                "(ROADMAP.md §1 item 3); pass --no_amr or "
-                "--taxon_module_only to profile without it")
-    return None
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.taxon_module_only:
@@ -349,10 +334,6 @@ def main(argv=None) -> int:
         import logging
 
         logging.basicConfig(level=logging.DEBUG)
-    unported = _unported_path(args)
-    if unported:
-        print(f"error: {unported}", file=sys.stderr)
-        return 2
     if args.max_aligner_thread:
         from megapath_nano_tpu_torch.native import lib as native_lib
 
@@ -474,8 +455,21 @@ def main(argv=None) -> int:
     options = options_from_args(args, have_human=human_db is not None,
                                 have_decoy=decoy_db is not None,
                                 have_assembly=assembly_db is not None)
+    aligner = None
+    if args.index_shards > 1:
+        from megapath_nano_tpu_torch.dist.sharded_aligner import (
+            ShardedAligner)
+
+        idx = db.index
+        seqs = [idx.seq_data[idx.seq_offsets[i]: idx.seq_offsets[i + 1]]
+                for i in range(len(idx.seq_names))]
+        aligner = ShardedAligner.build(
+            seqs, list(idx.seq_names), db.sequence_meta.assembly_idx,
+            db.assembly_names, args.index_shards, meta=db.sequence_meta,
+            params=options.align, k=idx.k, w=idx.w, device=args.device)
+        log.message(f"index sharded {args.index_shards} ways")
     profiler = TaxonProfiler(db, options, human_db=human_db,
-                             decoy_db=decoy_db, log=log,
+                             decoy_db=decoy_db, log=log, aligner=aligner,
                              assembly_db=assembly_db, device=args.device)
     profiler._length_bin = args.read_length_bin_size
     profiler._quality_bin = args.quality_score_bin_size
@@ -489,6 +483,38 @@ def main(argv=None) -> int:
         reads=reads,
         archive_format=args.archive_format,
         enabled=output_gates_from_args(args))
+
+    if args.amr and args.amr_db and len(result.best):
+        from megapath_nano_tpu_torch.amr.db import AMRGeneDB
+        from megapath_nano_tpu_torch.amr.module import run_amr
+
+        with log.step("amr"):
+            dbs = []
+            for d in args.amr_db:
+                dbs.append(AMRGeneDB.load(d) if os.path.isdir(d)
+                           else AMRGeneDB.from_fasta(
+                               os.path.splitext(os.path.basename(d))[0], d))
+            target_seqs = {}
+            idx = db.index
+            for seq_id in np.unique(result.best.data["sequence_id"]):
+                s0 = int(idx.seq_offsets[seq_id])
+                s1 = int(idx.seq_offsets[seq_id + 1])
+                target_seqs[int(seq_id)] = idx.seq_data[s0:s1]
+            protein_db = None
+            if args.amr_protein_db:
+                import json as _json
+
+                from megapath_nano_tpu_torch.amr.protein import ProteinDB
+
+                with open(os.path.join(args.amr_protein_db,
+                                       "proteins.json")) as f:
+                    protein_db = ProteinDB.from_records(
+                        "cbmar", _json.load(f))
+            amr_res = run_amr(result.best, reads, target_seqs, dbs,
+                              device=args.device,
+                              organism=args.amr_organism,
+                              protein_db=protein_db)
+            paths["amr"] = amr_res.write(args.output_folder, prefix)
 
     with open(os.path.join(args.output_folder, f"{prefix}.timing"), "w") as f:
         f.write(log.timing_table() + "\n")

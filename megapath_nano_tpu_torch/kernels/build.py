@@ -101,6 +101,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpn_sw_full.argtypes = sw_args
     lib.mpn_sw_scores.restype = i
     lib.mpn_sw_scores.argtypes = sw_args
+    lib.mpn_sw_full_max_band.restype = i
+    lib.mpn_sw_full_max_band.argtypes = [i, ctypes.POINTER(i)]
+    lib.mpn_sw_scores_max_band.restype = i
+    lib.mpn_sw_scores_max_band.argtypes = [i, ctypes.POINTER(i)]
     lib.mpn_chain.restype = i
     lib.mpn_chain.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
 

@@ -1,7 +1,9 @@
 // Shared pieces of the two banded extension kernels (sw_full.cu,
-// sw_scores.cu) in their warp-per-pair form: one warp walks one (read, ref)
+// sw_scores.cu). In their warp-per-pair form one warp walks one (read, ref)
 // pair, lane l owns the S = band / 32 consecutive band slots
-// k = S*l .. S*l + S - 1, and all DP state lives in registers.
+// k = S*l .. S*l + S - 1, and all DP state lives in registers. In their
+// block-per-pair form a block walks a pair, the DP state lives in planes of
+// band int32 in dynamic shared memory, and a thread owns every nt-th slot.
 
 #pragma once
 
@@ -21,9 +23,47 @@ struct Scoring {
 
 // The warp-per-pair form exists for these bands (S = 4, 8, 16 slots a lane);
 // the block-per-pair form serves every other band the wrappers accept
-// (multiples of 128 up to 1024).
+// (every multiple of 128 whose planes fit in shared memory).
 inline bool has_warp_form(int band) {
   return band == 128 || band == 256 || band == 512;
+}
+
+// Threads of a block-per-pair launch: ceil(band / 1024) slots a thread,
+// rounded up to whole warps (the band itself up to 1024).
+inline int block_threads(int band) {
+  const int per = (band + 1023) / 1024;
+  return 32 * ((band + 32 * per - 1) / (32 * per));
+}
+
+// The largest band a block-per-pair kernel takes on `device`: `planes`
+// int32 planes of band in dynamic shared memory, beside the kernel's static
+// shared memory, within what one block may opt in to (227 KB on an H100).
+inline cudaError_t block_max_band(const void* kernel, int planes, int device,
+                                  int* band) {
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const long long room = optin - static_cast<long long>(attr.sharedSizeBytes);
+  *band = static_cast<int>(room / (4LL * planes) / 128 * 128);
+  return cudaSuccess;
+}
+
+// Opt a block-per-pair kernel in to the dynamic shared memory of `band`
+// (refused past block_max_band); the bytes go to *smem.
+inline cudaError_t block_smem(const void* kernel, int planes, int band,
+                              int device, size_t* smem) {
+  int max_band = 0;
+  cudaError_t err = block_max_band(kernel, planes, device, &max_band);
+  if (err != cudaSuccess) return err;
+  if (band > max_band) return cudaErrorInvalidValue;
+  *smem = 4ull * planes * band;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
 }
 
 // A pair's read length as the reference clamps it: to [0, q_max rounded up

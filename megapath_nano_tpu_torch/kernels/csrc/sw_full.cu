@@ -52,11 +52,14 @@
 //    cells (sentinel 5 left of the window and past its length) themselves, so
 //    the CUDA route needs no padded copy of the refs.
 //
-// Block-per-pair form (sw_full_block_kernel): one thread a slot, the k + 1
-// exchange and a Hillis-Steele scan through shared memory with block
-// barriers. It serves the bands the warp form has no instantiation for
-// (mpn::has_warp_form in sw_band.cuh); where both exist the warp form is the
-// faster one at every batch size measured (times in PERF.md).
+// Block-per-pair form (sw_full_block_kernel): the DP state of every slot in
+// 12 planes of shared memory, a thread for every nt-th slot, the k + 1
+// exchange through shared memory and the F chain scanned chunk by chunk with
+// block barriers. It serves the bands the warp form has no instantiation for
+// (mpn::has_warp_form in sw_band.cuh), up to the band whose planes fill the
+// shared memory a block may have (mpn::block_max_band: 4736 on an H100);
+// where both forms exist the warp form is the faster one at every batch size
+// measured (times in PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,6 +72,9 @@ using mpn::kAllLanes;
 using mpn::kNeg;
 using mpn::kWarpsPerBlock;
 using mpn::Scoring;
+
+// Planes of band int32 the block-per-pair form keeps in shared memory.
+constexpr int kFullPlanes = 12;
 
 // One element of the F chain's scan.
 struct Opener {
@@ -290,6 +296,19 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
   o[6] = (wb & 0x7FFF) - band;
 }
 
+// Block-per-pair form: blockDim.x = nt threads, and thread t owns the slots
+// k = t, t + nt, t + 2 nt, ... of the band (block_threads: nt <= 1024). The
+// DP state of every slot lives in shared memory, in 12 planes of band int32
+// (the row's old H, E and companions, and the new Hnod and E with theirs),
+// so the band is bounded by shared memory alone (sw_full_block_smem). A row
+// is three passes over the thread's slots: (A) diagonal, E and Hnod from the
+// old planes into the new ones; (B) the F chain, chunk by chunk: chunk c is
+// slots c*nt .. c*nt + nt - 1, one a thread, scanned as in the warp form (a
+// shuffle scan in the warp, a fold over the earlier warps' totals) and
+// seeded with the carry of the chunks left of it, which starts as the fill
+// (NEG, 0, 0); (C) in the same chunk loop, F, the H selection and the
+// running best, written back to the old planes. The leftmost-maximum
+// operator is associative, so this order gives the reference's scan.
 __global__ void sw_full_block_kernel(const int8_t* __restrict__ reads,
                                      const int32_t* __restrict__ rlens,
                                      const int8_t* __restrict__ refs,
@@ -299,7 +318,13 @@ __global__ void sw_full_block_kernel(const int8_t* __restrict__ reads,
   const int match = sc.match, mismatch = sc.mismatch;
   const int gap_open = sc.gap_open, gap_extend = sc.gap_extend;
   extern __shared__ int32_t smem[];
-  const int k = threadIdx.x;
+  __shared__ Opener warp_total[32];
+  __shared__ unsigned long long warp_best[32];
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_warps = nt >> 5;
   const int pair = blockIdx.x;
   const int half = band >> 1;
   const int8_t* read = reads + static_cast<size_t>(pair) * q_max;
@@ -307,150 +332,162 @@ __global__ void sw_full_block_kernel(const int8_t* __restrict__ reads,
   const int rlen = mpn::clamp_read_len(rlens[pair], q_max);
   const int tlen = mpn::clamp_ref_len(tlens[pair], t_max);
 
-  // previous-row exchange (H, E and their companions) for the k+1 -> k shift
+  // the previous row: H, E and their companions, read at slots k and k + 1
   int32_t* xh = smem;
   int32_t* xe = xh + band;
   int32_t* xph = xe + band;
   int32_t* xbh = xph + band;
   int32_t* xpe = xbh + band;
   int32_t* xbe = xpe + band;
-  // double-buffered scan planes: buffer b holds (y, yp, yb)
-  int32_t* scan = xbe + band;
-
-  int h = 0, e = 0, ph = 0, bh = 0, pe = 0, be = 0;
-  int best_v = 0, best_i = 0, best_p = 0, best_b = 0;
+  // this row: Hnod and its companions, E and its companions
+  int32_t* nh = xbe + band;
+  int32_t* np = nh + band;
+  int32_t* nb = np + band;
+  int32_t* ne = nb + band;
+  int32_t* npe = ne + band;
+  int32_t* nbe = npe + band;
+  for (int k = t; k < band; k += nt)
+    xh[k] = xe[k] = xph[k] = xbh[k] = xpe[k] = xbe[k] = 0;
+  // the running best of the thread's slots: (max score, min row, min slot)
+  int best_v = 0, best_i = 0, best_k = t, best_p = 0, best_b = 0;
+  __syncthreads();
 
   for (int i = 0; i < rlen; ++i) {
-    xh[k] = h;
-    xe[k] = e;
-    xph[k] = ph;
-    xbh[k] = bh;
-    xpe[k] = pe;
-    xbe[k] = be;
-    __syncthreads();
-    int up_h = kNeg, up_e = kNeg, ph_up = 0, bh_up = 0, pe_up = 0, be_up = 0;
-    if (k + 1 < band) {
-      up_h = xh[k + 1];
-      up_e = xe[k + 1];
-      ph_up = xph[k + 1];
-      bh_up = xbh[k + 1];
-      pe_up = xpe[k + 1];
-      be_up = xbe[k + 1];
-    }
-
-    const int cur_j = i + k - half;
     const int rc = mpn::read_code(read, i, q_max);
-    const int tc = mpn::ref_code(ref, cur_j, tlen);
-    const bool ambig = (rc == 4) || (tc >= 4);
-    const int sub = ambig ? 0 : (rc == tc ? match : -mismatch);
-    const bool dead = tc == 5;
-    const bool is_match = (rc == tc) && !ambig;
-    const int cur_b = (i + band) * 32768 + (cur_j + band);
+    // (A) diagonal, E, Hnod
+    for (int k = t; k < band; k += nt) {
+      int up_h = kNeg, up_e = kNeg, ph_up = 0, bh_up = 0, pe_up = 0;
+      int be_up = 0;
+      if (k + 1 < band) {
+        up_h = xh[k + 1];
+        up_e = xe[k + 1];
+        ph_up = xph[k + 1];
+        bh_up = xbh[k + 1];
+        pe_up = xpe[k + 1];
+        be_up = xbe[k + 1];
+      }
+      const int h = xh[k];
+      const int cur_j = i + k - half;
+      const int tc = mpn::ref_code(ref, cur_j, tlen);
+      const bool ambig = (rc == 4) || (tc >= 4);
+      const int sub = ambig ? 0 : (rc == tc ? match : -mismatch);
+      const bool dead = tc == 5;
+      const bool is_match = (rc == tc) && !ambig;
+      const int cur_b = (i + band) * 32768 + (cur_j + band);
 
-    // diagonal: fresh start when the predecessor H is 0 (local stop)
-    const int m = h + sub;
-    const bool fresh = h == 0;
-    const int p_m = (fresh ? 0 : ph) + (is_match ? (1 << 16) : 1);
-    const int b_m = fresh ? cur_b : bh;
+      // diagonal: fresh start when the predecessor H is 0 (local stop)
+      const int m = h + sub;
+      const bool fresh = h == 0;
+      const int p_m = (fresh ? 0 : xph[k]) + (is_match ? (1 << 16) : 1);
+      const int b_m = fresh ? cur_b : xbh[k];
 
-    const int eo = up_h - gap_open;
-    const int ee = up_e - gap_extend;
-    const int e_new = eo > ee ? eo : ee;
-    const bool take_ext = ee >= eo;  // extension wins ties
-    const int p_e_new = (take_ext ? pe_up : ph_up) + 1;
-    const int b_e_new = take_ext ? be_up : bh_up;
+      const int eo = up_h - gap_open;
+      const int ee = up_e - gap_extend;
+      const int e_new = eo > ee ? eo : ee;
+      const bool take_ext = ee >= eo;  // extension wins ties
+      const int p_e_new = (take_ext ? pe_up : ph_up) + 1;
+      const int b_e_new = take_ext ? be_up : bh_up;
 
-    const bool take_m = m >= e_new;  // diagonal wins ties
-    int h_nod = m > e_new ? m : e_new;
-    const int p_nod = take_m ? p_m : p_e_new;
-    const int b_nod = take_m ? b_m : b_e_new;
-    if (dead) h_nod = kNeg;
-
-    // F chain: exclusive tuple prefix-max, earlier slot wins ties
-    int* y0 = scan;
-    y0[k] = h_nod - gap_open + k * gap_extend;
-    y0[band + k] = p_nod + (band - k);
-    y0[2 * band + k] = b_nod;
-    __syncthreads();
-    int y = kNeg, yp = 0, yb = 0;
-    if (k >= 1) {
-      y = y0[k - 1];
-      yp = y0[band + k - 1];
-      yb = y0[2 * band + k - 1];
+      const bool take_m = m >= e_new;  // diagonal wins ties
+      int h_nod = m > e_new ? m : e_new;
+      if (dead) h_nod = kNeg;  // a live cell has h_nod >= -mismatch
+      nh[k] = h_nod;
+      np[k] = take_m ? p_m : p_e_new;
+      nb[k] = take_m ? b_m : b_e_new;
+      ne[k] = dead ? 0 : (e_new > 0 ? e_new : 0);
+      npe[k] = p_e_new;
+      nbe[k] = b_e_new;
     }
-    int buf = 1;
-    for (int s = 1; s < band; s <<= 1) {
-      int* yb_ = scan + buf * 3 * band;
-      yb_[k] = y;
-      yb_[band + k] = yp;
-      yb_[2 * band + k] = yb;
+    __syncthreads();  // every read of the old planes in this row is done
+
+    // (B) + (C): the F chain chunk by chunk, then F, H and the best
+    Opener carry;
+    carry.g = kNeg;
+    carry.p = 0;
+    carry.b = 0;
+    for (int c0 = 0; c0 < band; c0 += nt) {
+      const int k = c0 + t;
+      Opener x = carry;  // slots past the band stand right of every slot
+      if (k < band) {
+        x.g = nh[k] - gap_open + k * gap_extend;
+        x.p = np[k] + (band - k);
+        x.b = nb[k];
+      }
+      Opener inc = x;
+      for (int s = 1; s < 32; s <<= 1) {
+        Opener o;
+        o.g = __shfl_up_sync(kAllLanes, inc.g, s);
+        o.p = __shfl_up_sync(kAllLanes, inc.p, s);
+        o.b = __shfl_up_sync(kAllLanes, inc.b, s);
+        if (lane >= s) inc = keep_left(o, inc);
+      }
+      Opener ex;
+      ex.g = __shfl_up_sync(kAllLanes, inc.g, 1);
+      ex.p = __shfl_up_sync(kAllLanes, inc.p, 1);
+      ex.b = __shfl_up_sync(kAllLanes, inc.b, 1);
+      if (lane == 31) warp_total[warp] = inc;
       __syncthreads();
-      int ys = kNeg, yps = 0, ybs = 0;
-      if (k >= s) {
-        ys = yb_[k - s];
-        yps = yb_[band + k - s];
-        ybs = yb_[2 * band + k - s];
-      }
-      if (ys >= y) {
-        y = ys;
-        yp = yps;
-        yb = ybs;
-      }
-      buf ^= 1;
-    }
-    const int f = y - (k - 1) * gap_extend;
-    const int p_f = yp + k - band;
-    const int b_f = yb;
+      // the exclusive prefix of slot k: the fill and every slot left of it
+      Opener y = carry;
+      for (int w = 0; w < warp; ++w) y = keep_left(y, warp_total[w]);
+      if (lane > 0) y = keep_left(y, ex);
+      for (int w = 0; w < n_warps; ++w)
+        carry = keep_left(carry, warp_total[w]);
+      __syncthreads();  // warp_total is rewritten by the next chunk
+      if (k >= band) continue;
 
-    const bool take_nod = h_nod >= f;  // diagonal/E win ties over F
-    int hh = h_nod > f ? h_nod : f;
-    const int p_hx = take_nod ? p_nod : p_f;
-    const int b_hx = take_nod ? b_nod : b_f;
-    hh = hh > 0 ? hh : 0;
-    if (dead) hh = 0;
-    const bool pos = hh > 0;
-
-    h = hh;
-    e = dead ? 0 : (e_new > 0 ? e_new : 0);
-    ph = pos ? p_hx : 0;
-    bh = pos ? b_hx : cur_b;
-    pe = p_e_new;
-    be = b_e_new;
-    if (h > best_v) {
-      best_v = h;
-      best_i = i;
-      best_p = ph;
-      best_b = bh;
+      const int h_nod = nh[k];
+      const int p_nod = np[k];
+      const int b_nod = nb[k];
+      const bool dead = h_nod == kNeg;
+      const int f = y.g - (k - 1) * gap_extend;
+      const int p_f = y.p + k - band;
+      const bool take_nod = h_nod >= f;  // diagonal/E win ties over F
+      int hh = h_nod > f ? h_nod : f;
+      const int p_hx = take_nod ? p_nod : p_f;
+      const int b_hx = take_nod ? b_nod : y.b;
+      hh = hh > 0 ? hh : 0;
+      if (dead) hh = 0;
+      const bool pos = hh > 0;
+      const int ph = pos ? p_hx : 0;
+      const int bh = pos ? b_hx : (i + band) * 32768 + (i + k - half + band);
+      xh[k] = hh;
+      xph[k] = ph;
+      xbh[k] = bh;
+      xe[k] = ne[k];
+      xpe[k] = npe[k];
+      xbe[k] = nbe[k];
+      if (hh > best_v) {  // slots in ascending k, rows in ascending i
+        best_v = hh;
+        best_i = i;
+        best_k = k;
+        best_p = ph;
+        best_b = bh;
+      }
     }
+    __syncthreads();  // the next row reads the old planes at k + 1
   }
 
   // block reduction by (max score, min row, min slot) on one packed key
+  // (rows and slots below 2**15: q_max + band < 2**15)
   unsigned long long key =
       (static_cast<unsigned long long>(best_v) << 32) |
       (static_cast<unsigned long long>(32767 - best_i) << 16) |
-      static_cast<unsigned long long>(65535 - k);
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_down_sync(0xffffffffu, key, off);
-    key = o > key ? o : key;
-  }
-  __shared__ unsigned long long warp_best[32];
+      static_cast<unsigned long long>(65535 - best_k);
+  key = mpn::warp_max_key(key);
+  if (lane == 0) warp_best[warp] = key;
   __syncthreads();
-  if ((k & 31) == 0) warp_best[k >> 5] = key;
-  __syncthreads();
-  if (k < 32) {
-    unsigned long long v = k < (band >> 5) ? warp_best[k] : 0ull;
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-      v = o > v ? o : v;
-    }
-    if (k == 0) warp_best[0] = v;
+  if (t < 32) {
+    unsigned long long v = t < n_warps ? warp_best[t] : 0ull;
+    v = mpn::warp_max_key(v);
+    if (t == 0) warp_best[0] = v;
   }
   __syncthreads();
   const unsigned long long win = warp_best[0];
-  if (k != 65535 - static_cast<int>(win & 0xFFFFull)) return;
+  if (best_k != 65535 - static_cast<int>(win & 0xFFFFull)) return;
 
   // the companions are taken before a no-alignment result is zeroed
-  int score = best_v, bi = best_i, bk = k;
+  int score = best_v, bi = best_i, bk = best_k;
   if (score <= 0) {
     score = 0;
     bi = 0;
@@ -478,6 +515,15 @@ void launch_warp_form(const int8_t* reads, const int32_t* rlens,
 
 }  // namespace
 
+// The largest band the block-per-pair form takes on `device`, in *band.
+extern "C" int mpn_sw_full_max_band(int device, int* band) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(mpn::block_max_band(
+      reinterpret_cast<const void*>(sw_full_block_kernel), kFullPlanes,
+      device, band));
+}
+
 // reads (n, q_max) and refs (n, t_max) int8 with q_max and t_max multiples
 // of 4 and 4-byte aligned bases, rlens and tlens (n,) int32, out (n, 7)
 // int32. form: 0 = the warp form where the band has one, 1 = warp per pair,
@@ -497,7 +543,7 @@ extern "C" int mpn_sw_full(const void* reads_, const void* rlens_,
   auto* out = static_cast<int32_t*>(out_);
   auto stream = static_cast<cudaStream_t>(stream_);
   const Scoring sc{match, mismatch, gap_open, gap_extend};
-  if (band < 128 || band > 1024 || band % 128 != 0 || q_max % 4 != 0 ||
+  if (band < 128 || band % 128 != 0 || q_max % 4 != 0 ||
       t_max % 4 != 0 || reinterpret_cast<uintptr_t>(reads) % 4 != 0 ||
       reinterpret_cast<uintptr_t>(refs) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -512,16 +558,11 @@ extern "C" int mpn_sw_full(const void* reads_, const void* rlens_,
     launch_warp_form<16>(reads, rlens, refs, tlens, out, n, q_max, t_max, sc,
                          stream);
   else if (form == 2) {
-    // 12 planes of band int32; with the kernel's static 256 bytes, band 1024
-    // goes past the 48 KB a launch gets without asking
-    const size_t smem = 12 * band * sizeof(int32_t);
-    if (smem + 256 > 48 * 1024) {
-      err = cudaFuncSetAttribute(sw_full_block_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    sw_full_block_kernel<<<n, band, smem, stream>>>(
+    size_t smem = 0;
+    err = mpn::block_smem(reinterpret_cast<const void*>(sw_full_block_kernel),
+                          kFullPlanes, band, device, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sw_full_block_kernel<<<n, mpn::block_threads(band), smem, stream>>>(
         reads, rlens, refs, tlens, out, q_max, t_max, band, sc);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -45,10 +45,13 @@
 // between pairs: this kernel has no window limit and serves reads of 65536
 // bases and more.
 //
-// Block-per-pair form (sw_scores_block_kernel): one thread a slot, the k + 1
-// exchange through shared memory, a warp-shuffle scan plus a fold over the
-// earlier warps' totals, two block barriers a row. It serves the bands the
-// warp form has no instantiation for (mpn::has_warp_form in sw_band.cuh).
+// Block-per-pair form (sw_scores_block_kernel): the DP state of every slot
+// in 4 planes of shared memory, a thread for every nt-th slot, the k + 1
+// exchange through shared memory, and per chunk of nt slots a warp-shuffle
+// scan plus a fold over the earlier warps' totals and the chunks before.
+// It serves the bands the warp form has no instantiation for
+// (mpn::has_warp_form in sw_band.cuh), up to the band whose planes fill the
+// shared memory a block may have (mpn::block_max_band: 14464 on an H100).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -64,6 +67,23 @@ using mpn::Scoring;
 
 constexpr int kRowBits = 22;  // end_read < 2**22 in the reduction key
 constexpr int kRowMax = (1 << kRowBits) - 1;
+// Planes of band int32 the block-per-pair form keeps in shared memory.
+constexpr int kScorePlanes = 4;
+
+// (v, i, k) of the warp's best cell by (max v, min i, min k), to every lane.
+__device__ __forceinline__ void warp_best3(int& v, int& i, int& k) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int ov = __shfl_xor_sync(kAllLanes, v, off);
+    const int oi = __shfl_xor_sync(kAllLanes, i, off);
+    const int ok = __shfl_xor_sync(kAllLanes, k, off);
+    if (ov > v || (ov == v && (oi < i || (oi == i && ok < k)))) {
+      v = ov;
+      i = oi;
+      k = ok;
+    }
+  }
+}
 
 // A lane's DP state. Slots 0 .. S - 1 are the lane's own; index S holds, for
 // one row, the old values of slot 0 of lane + 1.
@@ -198,6 +218,14 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
   out[2 * static_cast<size_t>(n) + pair] = wi + wk - half;
 }
 
+// Block-per-pair form: blockDim.x = nt threads, and thread t owns the slots
+// k = t, t + nt, t + 2 nt, ... of the band (mpn::block_threads). The DP
+// state lives in 4 planes of band int32 in shared memory (the row's old H
+// and E, its new Hnod and E). A row is (A) diagonal, E and Hnod from the old
+// planes into the new ones, then (B) the F chain chunk by chunk (chunk c is
+// slots c*nt .. c*nt + nt - 1, one a thread: a warp-shuffle maximum scan, a
+// fold over the earlier warps' totals and the carry of the chunks left of
+// it) with F, H and the running best written back to the old planes.
 __global__ void sw_scores_block_kernel(const int8_t* __restrict__ reads,
                                        const int32_t* __restrict__ rlens,
                                        const int8_t* __restrict__ refs,
@@ -207,14 +235,15 @@ __global__ void sw_scores_block_kernel(const int8_t* __restrict__ reads,
                                        Scoring sc) {
   const int match = sc.match, mismatch = sc.mismatch;
   const int gap_open = sc.gap_open, gap_extend = sc.gap_extend;
-  __shared__ int32_t xh[1024];
-  __shared__ int32_t xe[1024];
+  extern __shared__ int32_t smem[];
   __shared__ int32_t warp_top[32];
-  __shared__ unsigned long long warp_best[32];
+  __shared__ int32_t warp_v[32], warp_i[32], warp_k[32];
 
-  const int k = threadIdx.x;
-  const int lane = k & 31;
-  const int warp = k >> 5;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_warps = nt >> 5;
   const int pair = blockIdx.x;
   const int half = band >> 1;
   const int8_t* read = reads + static_cast<size_t>(pair) * q_max;
@@ -222,97 +251,102 @@ __global__ void sw_scores_block_kernel(const int8_t* __restrict__ reads,
   const int rlen = mpn::clamp_read_len(rlens[pair], q_max);
   const int tlen = mpn::clamp_ref_len(tlens[pair], t_max);
 
-  int h = 0, e = 0;
-  int best_v = 0, best_i = 0;
-  xh[k] = 0;
-  xe[k] = 0;
+  int32_t* xh = smem;       // the previous row's H and E
+  int32_t* xe = xh + band;
+  int32_t* nh = xe + band;  // this row's Hnod and E
+  int32_t* ne = nh + band;
+  for (int k = t; k < band; k += nt) xh[k] = xe[k] = 0;
+  // the running best of the thread's slots: (max score, min row, min slot)
+  int best_v = 0, best_i = 0, best_k = t;
   __syncthreads();
 
   for (int i = 0; i < rlen; ++i) {
-    // vertical predecessor: slot k+1 of the previous row, NEG past the band
-    int up_h = kNeg, up_e = kNeg;
-    if (k + 1 < band) {
-      up_h = xh[k + 1];
-      up_e = xe[k + 1];
-    }
-
     const int rc = mpn::read_code(read, i, q_max);
-    const int tc = mpn::ref_code(ref, i + k - half, tlen);
-    const bool ambig = (rc == 4) || (tc >= 4);
-    const int sub = ambig ? 0 : (rc == tc ? match : -mismatch);
-    const bool dead = tc == 5;
-
-    const int m = h + sub;
-    const int eo = up_h - gap_open;
-    const int ee = up_e - gap_extend;
-    const int e_new = eo > ee ? eo : ee;
-    int h_nod = m > e_new ? m : e_new;
-    if (dead) h_nod = kNeg;
-
-    // exclusive prefix-max of g over the band, floored at NEG
-    const int g = h_nod - gap_open + k * gap_extend;
-    int inc = g;
-    for (int s = 1; s < 32; s <<= 1) {
-      const int o = __shfl_up_sync(0xffffffffu, inc, s);
-      if (lane >= s && o > inc) inc = o;
-    }
-    int y = __shfl_up_sync(0xffffffffu, inc, 1);
-    if (lane == 0) y = kNeg;
-    if (lane == 31) warp_top[warp] = inc;
-    __syncthreads();  // warp_top written; every xh/xe read of this row done
-    for (int w = 0; w < warp; ++w) {
-      const int o = warp_top[w];
-      if (o > y) y = o;
-    }
-    if (y < kNeg) y = kNeg;
-    const int f = y - (k - 1) * gap_extend;
-
-    int hh = h_nod > f ? h_nod : f;
-    hh = hh > 0 ? hh : 0;
-    if (dead) hh = 0;
-    h = hh;
-    e = e_new > 0 ? e_new : 0;  // no zeroing on dead slots (see above)
-    if (h > best_v) {
-      best_v = h;
-      best_i = i;
-    }
-    xh[k] = h;
-    xe[k] = e;
-    __syncthreads();  // next row reads xh/xe and rewrites warp_top
-  }
-
-  // block reduction by (max score, min row, min slot) on one packed key
-  unsigned long long key =
-      (static_cast<unsigned long long>(best_v) << 32) |
-      (static_cast<unsigned long long>(((1 << kRowBits) - 1) - best_i) << 10) |
-      static_cast<unsigned long long>(1023 - k);
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_down_sync(0xffffffffu, key, off);
-    key = o > key ? o : key;
-  }
-  if (lane == 0) warp_best[warp] = key;
-  __syncthreads();
-  if (k < 32) {
-    unsigned long long v = k < (band >> 5) ? warp_best[k] : 0ull;
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-      v = o > v ? o : v;
-    }
-    if (k == 0) {
-      int score = static_cast<int>(v >> 32);
-      int bi = ((1 << kRowBits) - 1) -
-               static_cast<int>((v >> 10) & ((1ull << kRowBits) - 1));
-      int bk = 1023 - static_cast<int>(v & 1023ull);
-      if (score <= 0) {  // no positive cell: (0, 0, -band/2)
-        score = 0;
-        bi = 0;
-        bk = 0;
+    // (A) vertical predecessor: slot k + 1 of the previous row, NEG past the
+    // band
+    for (int k = t; k < band; k += nt) {
+      int up_h = kNeg, up_e = kNeg;
+      if (k + 1 < band) {
+        up_h = xh[k + 1];
+        up_e = xe[k + 1];
       }
-      out[pair] = score;
-      out[static_cast<size_t>(n) + pair] = bi;
-      out[2 * static_cast<size_t>(n) + pair] = bi + bk - half;
+      const int tc = mpn::ref_code(ref, i + k - half, tlen);
+      const bool ambig = (rc == 4) || (tc >= 4);
+      const int sub = ambig ? 0 : (rc == tc ? match : -mismatch);
+      const int m = xh[k] + sub;
+      const int eo = up_h - gap_open;
+      const int ee = up_e - gap_extend;
+      const int e_new = eo > ee ? eo : ee;
+      int h_nod = m > e_new ? m : e_new;
+      if (tc == 5) h_nod = kNeg;  // dead; a live cell has h_nod >= -mismatch
+      nh[k] = h_nod;
+      ne[k] = e_new > 0 ? e_new : 0;  // no zeroing on dead slots (see above)
     }
+    __syncthreads();  // every read of the old planes in this row is done
+
+    // (B) exclusive prefix-max of g over the band, floored at NEG
+    int carry = kNeg;
+    for (int c0 = 0; c0 < band; c0 += nt) {
+      const int k = c0 + t;
+      const int g = k < band ? nh[k] - gap_open + k * gap_extend : kNeg;
+      int inc = g;
+      for (int s = 1; s < 32; s <<= 1) {
+        const int o = __shfl_up_sync(kAllLanes, inc, s);
+        if (lane >= s && o > inc) inc = o;
+      }
+      int y = __shfl_up_sync(kAllLanes, inc, 1);
+      if (lane == 0) y = kNeg;
+      if (lane == 31) warp_top[warp] = inc;
+      __syncthreads();
+      for (int w = 0; w < warp; ++w) y = warp_top[w] > y ? warp_top[w] : y;
+      y = carry > y ? carry : y;
+      for (int w = 0; w < n_warps; ++w)
+        carry = warp_top[w] > carry ? warp_top[w] : carry;
+      __syncthreads();  // warp_top is rewritten by the next chunk
+      if (k >= band) continue;
+
+      if (y < kNeg) y = kNeg;
+      const int h_nod = nh[k];
+      const int f = y - (k - 1) * gap_extend;
+      int hh = h_nod > f ? h_nod : f;
+      hh = hh > 0 ? hh : 0;
+      if (h_nod == kNeg) hh = 0;  // dead
+      xh[k] = hh;
+      xe[k] = ne[k];
+      if (hh > best_v) {  // slots in ascending k, rows in ascending i
+        best_v = hh;
+        best_i = i;
+        best_k = k;
+      }
+    }
+    __syncthreads();  // the next row reads the old planes at k + 1
   }
+
+  // block reduction by (max score, min row, min slot)
+  warp_best3(best_v, best_i, best_k);
+  if (lane == 0) {
+    warp_v[warp] = best_v;
+    warp_i[warp] = best_i;
+    warp_k[warp] = best_k;
+  }
+  __syncthreads();
+  if (t >= 32) return;
+  int v = 0, bi = 0, bk = band;
+  if (t < n_warps) {
+    v = warp_v[t];
+    bi = warp_i[t];
+    bk = warp_k[t];
+  }
+  warp_best3(v, bi, bk);
+  if (t != 0) return;
+  if (v <= 0) {  // no positive cell: (0, 0, -band/2)
+    v = 0;
+    bi = 0;
+    bk = 0;
+  }
+  out[pair] = v;
+  out[static_cast<size_t>(n) + pair] = bi;
+  out[2 * static_cast<size_t>(n) + pair] = bi + bk - half;
 }
 
 template <int S>
@@ -326,6 +360,15 @@ void launch_warp_form(const int8_t* reads, const int32_t* rlens,
 }
 
 }  // namespace
+
+// The largest band the block-per-pair form takes on `device`, in *band.
+extern "C" int mpn_sw_scores_max_band(int device, int* band) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(mpn::block_max_band(
+      reinterpret_cast<const void*>(sw_scores_block_kernel), kScorePlanes,
+      device, band));
+}
 
 // reads (n, q_max) and refs (n, t_max) int8 with q_max and t_max multiples
 // of 4 and 4-byte aligned bases, rlens and tlens (n,) int32, out (3, n)
@@ -347,7 +390,7 @@ extern "C" int mpn_sw_scores(const void* reads_, const void* rlens_,
   auto* out = static_cast<int32_t*>(out_);
   auto stream = static_cast<cudaStream_t>(stream_);
   const Scoring sc{match, mismatch, gap_open, gap_extend};
-  if (band < 128 || band > 1024 || band % 128 != 0 || q_max % 4 != 0 ||
+  if (band < 128 || band % 128 != 0 || q_max % 4 != 0 ||
       t_max % 4 != 0 || q_max + 128 >= (1 << kRowBits) ||
       reinterpret_cast<uintptr_t>(reads) % 4 != 0 ||
       reinterpret_cast<uintptr_t>(refs) % 4 != 0)
@@ -365,10 +408,15 @@ extern "C" int mpn_sw_scores(const void* reads_, const void* rlens_,
   else if (form == 1 && band == 512)
     launch_warp_form<16>(reads, rlens, refs, tlens, out, n, q_max, t_max, sc,
                          stream);
-  else if (form == 2)
-    sw_scores_block_kernel<<<n, band, 0, stream>>>(
+  else if (form == 2) {
+    size_t smem = 0;
+    err = mpn::block_smem(
+        reinterpret_cast<const void*>(sw_scores_block_kernel), kScorePlanes,
+        band, device, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sw_scores_block_kernel<<<n, mpn::block_threads(band), smem, stream>>>(
         reads, rlens, refs, tlens, out, n, q_max, t_max, band, sc);
-  else
+  } else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

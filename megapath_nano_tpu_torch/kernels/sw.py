@@ -25,6 +25,9 @@ plain versions, so that a CPU test can hold them to the reference's order.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from megapath_nano_tpu_torch.kernels import build
@@ -45,9 +48,9 @@ def _pad_cols(x: torch.Tensor, left: int, right: int, value: int):
 
 
 def _check_band(band):
-    if band % 128 or not 0 < band <= 1024:
-        raise ValueError(f"band must be a multiple of 128 in [128, 1024]; "
-                         f"got {band}")
+    if band % 128 or band <= 0:
+        raise ValueError(f"band must be a positive multiple of 128; got "
+                         f"{band}")
 
 
 def _prepare(reads, read_lens, refs, ref_lens, band):
@@ -333,6 +336,19 @@ def banded_sw_full_torch(reads, read_lens, refs_padded, *, band, match,
 # wrappers always pass FORM_BY_SHAPE; the other two let a check on the card
 # hold each form to the plain version and time one against the other.
 FORM_BY_SHAPE, FORM_WARP, FORM_BLOCK = 0, 1, 2
+WARP_BANDS = (128, 256, 512)    # the bands with a warp-per-pair form
+
+
+@functools.lru_cache(maxsize=None)
+def block_max_band(entry: str, device: int) -> int:
+    """The largest band the block-per-pair form of `entry` takes on CUDA
+    device `device`: its DP state, planes of band int32 (12 for sw_full, 4
+    for sw_scores), must fit in the shared memory one block may have."""
+    lib = build.load()
+    band = ctypes.c_int(0)
+    build.check(getattr(lib, entry + "_max_band")(device, ctypes.byref(band)),
+                entry + "_max_band")
+    return band.value
 
 
 def _word_rows(x, fill):
@@ -349,6 +365,15 @@ def _launch(entry, wrapper, out_shape, reads, read_lens, refs, ref_lens, *,
     kernels form the dead cells left of a window and past its length
     themselves, so no padded copy (`_prepare`) is made on this route."""
     _check_band(band)
+    device, stream = build.launch_args(reads)
+    if form == FORM_BLOCK or (form == FORM_BY_SHAPE
+                              and band not in WARP_BANDS):
+        limit = block_max_band(entry, device)
+        if band > limit:
+            raise ValueError(
+                f"{entry}: band {band} does not fit in a block's shared "
+                f"memory in the block-per-pair kernel; this card takes bands "
+                f"up to {limit}")
     n = reads.shape[0]
     if refs.shape[0] != n or read_lens.shape != (n,) or ref_lens.shape != (n,):
         raise ValueError(f"{entry}: {n} reads, {refs.shape[0]} refs, lengths "
@@ -358,7 +383,6 @@ def _launch(entry, wrapper, out_shape, reads, read_lens, refs, ref_lens, *,
     read_lens = read_lens.to(torch.int32).contiguous()
     ref_lens = ref_lens.to(torch.int32).contiguous()
     out = torch.empty(out_shape, dtype=torch.int32, device=reads.device)
-    device, stream = build.launch_args(reads)
     build.check(getattr(lib, entry)(
         reads.data_ptr(), read_lens.data_ptr(), refs.data_ptr(),
         ref_lens.data_ptr(), out.data_ptr(), n, reads.shape[1], refs.shape[1],
@@ -388,7 +412,8 @@ def banded_sw_full(reads, read_lens, refs, ref_lens, *, band: int = 128,
     del batch_tile
     dev = _same_device(reads, read_lens, refs, ref_lens)
     if reads.shape[1] + band >= 2 ** 15 or refs.shape[1] + band >= 2 ** 15:
-        raise ValueError("full-stats kernel packing needs windows < 32k")
+        raise ValueError("full-stats kernel packing needs windows < 32k (use "
+                         "host emit)")
     kw = dict(band=band, match=match, mismatch=mismatch, gap_open=gap_open,
               gap_extend=gap_extend)
     if dev.type == "cpu":

@@ -1,8 +1,9 @@
 """State carried across from the TPU package: the host index
 (`index_from_numpy`), the reference DB of the taxon profile
-(`refdb_from_numpy`) and the device planes (`device_planes_from_numpy`).
-There are no weights on these paths; the reference DB (sequences, taxonomy,
-minimizer index) and the 4-bit packed reference are their state.
+(`refdb_from_numpy`), an AMR gene DB (`amr_db_from_numpy`) and the device
+planes (`device_planes_from_numpy`). There are no weights on these paths;
+the reference DB (sequences, taxonomy, minimizer index), the gene DBs and
+the 4-bit packed reference are their state.
 
 The TPU package's MinimizerAligner keeps these arrays on its device (built
 on the host from the MinimizerIndex):
@@ -32,6 +33,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from megapath_nano_tpu_torch.amr.db import AMRGeneDB
 from megapath_nano_tpu_torch.index.minimizer import MinimizerIndex
 
 # name -> (dtype the TPU aligner holds, dtype of the port's tensor)
@@ -102,3 +104,17 @@ def refdb_from_numpy(src):
         assembly_lengths=np.asarray(src.assembly_lengths),
         assembly_tax=np.asarray(src.assembly_tax),
         tax_names=dict(src.tax_names))
+
+
+def amr_db_from_numpy(src):
+    """Build the port's AMRGeneDB from any object with the same fields (the
+    TPU package's AMRGeneDB), field for field: the gene index, when `src`
+    has built one, through `index_from_numpy`, not rebuilt; the sequences
+    shared, not copied."""
+    index = getattr(src, "_index", None)
+    return AMRGeneDB(
+        name=src.name, gene_names=list(src.gene_names),
+        sequences=[np.asarray(s) for s in src.sequences],
+        drugs=[list(d) for d in src.drugs], classes=list(src.classes),
+        accessions=list(src.accessions), taxa=list(src.taxa),
+        _index=None if index is None else index_from_numpy(index))

@@ -135,9 +135,10 @@ def test_sw_kernels_hard_batches_match_plain(cuda, case, band, form):
     assert torch.equal(got.cpu(), ref.cpu())
 
 
-@pytest.mark.parametrize("band", [384, 1024])
+@pytest.mark.parametrize("band", [384, 1024, 1152, 2048, 4096])
 def test_sw_kernels_other_bands_match_plain(cuda, band):
-    """Bands without a warp-per-pair instantiation take the block form."""
+    """Bands without a warp-per-pair instantiation take the block form;
+    above 1024 a thread of it owns several slots."""
     args = [torch.from_numpy(x).to(cuda) for x in _batch("ragged")]
     prepared = sw._prepare(*args, band)
     got = sw.banded_sw_full(*args, band=band, **PARAMS)
@@ -146,6 +147,23 @@ def test_sw_kernels_other_bands_match_plain(cuda, band):
     got = torch.stack(sw.banded_sw_scores(*args, band=band, **PARAMS))
     ref = sw.banded_sw_scores_torch(*prepared, band=band, **PARAMS)
     assert torch.equal(got.cpu(), ref.cpu())
+
+
+def test_sw_bands_beyond_shared_memory_raise(cuda):
+    """A band whose block-form planes do not fit in a block's shared memory
+    raises on the card (naming the limit); the plain version computes it."""
+    rng = np.random.default_rng(17)
+    args = [torch.from_numpy(x) for x in _random_batch(rng, 2, 300, 400)]
+    for entry, wrapper, plain in (
+            ("mpn_sw_full", sw.banded_sw_full, sw.banded_sw_full_torch),
+            ("mpn_sw_scores", sw.banded_sw_scores,
+             sw.banded_sw_scores_torch)):
+        limit = sw.block_max_band(entry, cuda.index or 0)
+        assert limit >= 4096
+        band = limit + 128
+        with pytest.raises(ValueError, match=f"bands up to {limit}"):
+            wrapper(*[a.to(cuda) for a in args], band=band, **PARAMS)
+        plain(*sw._prepare(*args, band), band=band, **PARAMS)
 
 
 @pytest.mark.parametrize("form", [sw.FORM_WARP, sw.FORM_BLOCK])
@@ -359,3 +377,91 @@ def test_profile_card_matches_cpu(cuda, emit_cigars, tmp_path):
         [vars(p) for p in cpu.noise_projections]
     assert "p.preport" in _same_report_files(str(tmp_path / "cuda"),
                                              str(tmp_path / "cpu"))
+
+
+def _amr_world():
+    """Two resistance genes in a 22 kb genome (a third gene only in the
+    DB) and 120 reads at 6% error, best alignments from a CPU profile."""
+    from megapath_nano_tpu_torch.amr.db import AMRGeneDB
+    from megapath_nano_tpu_torch.db.refdb import RefDB
+    from megapath_nano_tpu_torch.taxon.profiler import (ProfileOptions,
+                                                         TaxonProfiler)
+    from megapath_nano_tpu_torch.utils.dna import (mutate, random_sequence,
+                                                   revcomp)
+
+    rng = np.random.default_rng(0)
+    genes = [random_sequence(rng, n) for n in (900, 1100, 800)]
+    backbone = random_sequence(rng, 20000)
+    genome = np.concatenate([backbone[:6000], genes[0], backbone[6000:14000],
+                             genes[1], backbone[14000:]])
+    dbs = [AMRGeneDB("resfinder", ["blaTEM-1", "vanA", "mecA"], genes,
+                     [["ampicillin"], ["vancomycin"], ["methicillin"]]),
+           AMRGeneDB("card", ["TEM-1"], [genes[0]],
+                     [["ampicillin", "penicillins"]])]
+    reads = []
+    for _ in range(120):
+        s = int(rng.integers(0, len(genome) - 900))
+        r = mutate(rng, genome[s: s + 900], 0.03, 0.015, 0.015)
+        reads.append(revcomp(r) if rng.integers(0, 2) else r)
+    db = RefDB.build([genome], ["chr1"], [0], ["asm1"], [(1, 1, 1)])
+    best = TaxonProfiler(db, ProfileOptions(), device="cpu").profile(
+        reads).best
+    return genome, reads, dbs, best
+
+
+def test_run_amr_card_matches_cpu(cuda):
+    """run_amr on the card and on the CPU: the same contigs, hits and merged
+    table; the gene-DB scans of the card run launch the score-only
+    extension and the chain kernel, the CPU run launches nothing."""
+    from megapath_nano_tpu_torch.amr.module import run_amr
+
+    genome, reads, dbs, best = _amr_world()
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = (sw.banded_sw_scores.launches,
+                  chain.chain_and_extents.launches)
+        res = run_amr(best, reads, {0: genome}, dbs, device=device)
+        out[device] = (res, (sw.banded_sw_scores.launches - before[0],
+                             chain.chain_and_extents.launches - before[1]))
+    (gpu, launched), (cpu, none) = out["cuda"], out["cpu"]
+    assert launched[0] > 0 and launched[1] > 0 and none == (0, 0)
+    assert [(c.sequence_id, c.start, c.seq.tolist()) for c in gpu.contigs] \
+        == [(c.sequence_id, c.start, c.seq.tolist()) for c in cpu.contigs]
+    assert {k: [vars(h) for h in v] for k, v in gpu.hits_by_db.items()} == \
+        {k: [vars(h) for h in v] for k, v in cpu.hits_by_db.items()}
+    assert gpu.merged == cpu.merged
+    assert {h.gene for h in gpu.hits_by_db["resfinder"]} == {"blaTEM-1",
+                                                             "vanA"}
+
+
+@pytest.mark.parametrize("emit_cigars", [False, True])
+def test_sharded_aligner_card_matches_cpu(cuda, emit_cigars):
+    """ShardedAligner over 3 shards (4 genomes, one assembly of two
+    sequences) on the card and on the CPU: the merged AlignList equal in
+    all 18 fields and cigar_map; the card's shards launch the kernels."""
+    from megapath_nano_tpu_torch.dist.sharded_aligner import ShardedAligner
+    from megapath_nano_tpu_torch.utils.dna import (mutate, random_sequence,
+                                                   revcomp)
+
+    rng = np.random.default_rng(0)
+    genomes = [random_sequence(rng, 20000) for _ in range(4)]
+    names = [f"g{i}" for i in range(4)]
+    reads = []
+    for _ in range(96):
+        g = genomes[int(rng.integers(0, 4))]
+        s = int(rng.integers(0, len(g) - 900))
+        r = mutate(rng, g[s: s + 900], 0.03, 0.015, 0.015)
+        reads.append(revcomp(r) if rng.integers(0, 2) else r)
+    ext = sw.banded_sw_scores if emit_cigars else sw.banded_sw_full
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = (ext.launches, chain.chain_and_extents.launches)
+        al = ShardedAligner.build(genomes, names, [0, 1, 2, 2],
+                                  ["a0", "a1", "a2"], 3, device=device)
+        res = al.map_reads(reads, emit_cigars=emit_cigars)
+        out[device] = (res, (ext.launches - before[0],
+                             chain.chain_and_extents.launches - before[1]))
+    (gpu, launched), (cpu, none) = out["cuda"], out["cpu"]
+    assert launched[0] > 0 and launched[1] > 0 and none == (0, 0)
+    assert len(gpu.data) > 0 and np.array_equal(gpu.data, cpu.data)
+    assert gpu.cigar_map == cpu.cigar_map

@@ -43,7 +43,18 @@ def test_package_imports_without_jax():
             "megapath_nano_tpu_torch.report.writers",
             "megapath_nano_tpu_torch.report.histograms",
             "megapath_nano_tpu_torch.sim.simulator",
-            "megapath_nano_tpu_torch.cli.main"} <= set(names)
+            "megapath_nano_tpu_torch.cli.main",
+            "megapath_nano_tpu_torch.cli.amr",
+            "megapath_nano_tpu_torch.cli.build_db",
+            "megapath_nano_tpu_torch.io.sam",
+            "megapath_nano_tpu_torch.io.bgzf",
+            "megapath_nano_tpu_torch.db.taxdump",
+            "megapath_nano_tpu_torch.db.sqlite_taxonomy",
+            "megapath_nano_tpu_torch.db.refseq_plan",
+            "megapath_nano_tpu_torch.dist.sharded_aligner"} <= set(names)
+    assert {f"megapath_nano_tpu_torch.amr.{m}" for m in (
+        "db", "consensus", "orf", "protein", "scan", "report",
+        "module")} <= set(names)
     assert {f"megapath_nano_tpu_torch.taxon.{m}" for m in (
         "intervals", "abundance", "best_align", "filters", "reassign",
         "noise_stats", "bed_cache", "assembly_selection", "profiler",

@@ -6,7 +6,8 @@ build_db from FASTA and a metadata table), without `--amr_db`. Each run
 writes the same files, byte-equal (archives member by member; `.timing`
 holds wall times and is only required to exist). The port's parser keeps
 every flag and dest of the original but `--backend`, which becomes
-`--device`; the two paths not ported yet exit with code 2."""
+`--device`. (`--amr_db` and `--index_shards`: tests/test_torch_amr_cli.py
+and tests/test_torch_sharded.py.)"""
 
 import numpy as np
 import pytest
@@ -167,21 +168,6 @@ def test_options_from_args_match():
                 else:
                     assert jd[k] == td[k], k
     assert jcli.output_gates_from_args(ja) == tcli.output_gates_from_args(ta)
-
-
-@pytest.mark.parametrize("extra", [["--index_shards", "2"],
-                                   ["--amr_db", "amrdb"]],
-                         ids=["index_shards", "amr_db"])
-def test_unported_paths_exit_2(world, extra, tmp_path, capsys):
-    assert tcli.main(_common(world, tmp_path) + extra
-                     + ["--device", "cpu"]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
-    assert not (tmp_path / "demo.preport").exists()
-    # without the AMR module the same run profiles
-    if "--amr_db" in extra:
-        assert tcli.main(_common(world, tmp_path) + extra
-                         + ["--taxon_module_only", "--device", "cpu"]) == 0
-        assert (tmp_path / "demo.preport").exists()
 
 
 def test_cli_defaults_to_the_card(world, tmp_path):
