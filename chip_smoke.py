@@ -50,7 +50,7 @@ failure:
    time, idle share, kernel time by name). Then 2048 reads of 4 kb, so that
    band 256 runs on the path.
 4. The same aligner on the card and on the CPU (plain versions) on 512
-   reads in PAF mode: all 18 AlignList fields equal. Then 2048 reads in
+   reads in PAF mode: all 18 AlignList fields equal. Then 1024 reads in
    slices of 512 with the device-seeding caps cut to a quarter, on both:
    slices overflow and their tails are redone host-seeded; at least one
    read must have been redone, and records, overflow statistics and cap
@@ -71,7 +71,7 @@ failure:
 7. The taxon profile through its CLI (megapath_nano_tpu_torch.cli.main.main)
    on the card, with the default flags (read filter, adapter trimming, PAF
    placement): 32 genomes of 4 Mbp as 8 genera x 4 species (each species
-   its genus ancestor mutated by 3-8%), a RefDB built and saved, 32768
+   its genus ancestor mutated by 3-8%), a RefDB built and saved, 16384
    reads of 1 kb at 6% error as FASTQ with qualities, in a geometric mix
    over the species (ratio 0.75, ranks drawn at random). At least 90% of
    the reads aligned, at least 90% of the best alignments on the true
@@ -81,8 +81,8 @@ failure:
 8. The CLI with the noise stack's gates on (human filter, reassignment,
    spike, microbe-repetitive regions, variable regions, similar-species
    marker, noise projection, unique alignment, closing spike): 8 genomes of
-   1 Mbp (2 genera x 4 species, 0.5-2% from their ancestor), a 2 Mbp human
-   RefDB, 4096 reads of 1 kb, 5% of them human. Once with --device cuda and
+   500 kb (2 genera x 4 species, 0.5-2% from their ancestor), a 1 Mbp human
+   RefDB, 2048 reads of 1 kb, 5% of them human. Once with --device cuda and
    once with --device cpu (plain versions; a child process at low priority
    started before phase 7, since it takes minutes): every output file equal
    (archives member by member, .timing aside); sw_scores launched.
@@ -125,13 +125,28 @@ failure:
    with the truth VCF: training zygosity accuracy above 0.95, the train
    step's time; the saved pickle through cli.amplicon --model calls at
    least 90% of all 96 SNVs.
+12. The mesh path (dist/fused_sharded.py: ShardMapAligner over a
+   one-process mesh of dist/mesh.py, every cell on the card in turn).
+   12a on phase 3's world: ShardedIndexPlanes.build over 4 shards; meshes
+   (1, 4) and (2, 4) map phase 3's 32768 reads (slices of 2048) equal to
+   phase 3's monolithic PAF map in all 18 fields; mesh (2, 4) on the card
+   against the CPU (plain versions) on 512 reads (a block of 256 for each
+   data row), also with the rows cap cut to 4 (cells overflow, the cut
+   reads are redone host-seeded; at least one read redone, statistics
+   equal); the planes saved, loaded and mapped again. 12b at 1 Gbp: 256
+   random genomes of 4 Mbp over 4 shards, 16384 reads of 1 kb at 6% error
+   (half reverse-complemented) drawn over all of them, mesh (1, 4) after a
+   warm-up: the accuracy bars of phase 3, sw_full and chain launched,
+   reads/s, peak device memory, overflow statistics, host time by stage;
+   mesh (2, 4) equal; one run under torch.profiler.
+   12c: measure_scaling() (dist/scaling.py) with its defaults on the card.
 
 The last line of output is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record, whose `launches_by_path` counts each
 kernel's launches in the PAF map, the CIGAR map, the profile (phase 7 and
-phase 8's card run), phase 9's amr step, phase 10's sharded run and phase
-11's cli.amplicon and cli.train_variant runs. Phases 9-11 run between 7 and
-8, beside phase 8's CPU child.
+phase 8's card run), phase 9's amr step, phase 10's sharded run, phase
+11's cli.amplicon and cli.train_variant runs and phase 12b's timed mesh
+map. Phases 9-12 run between 7 and 8, beside phase 8's CPU child.
 
     python3 chip_smoke.py profile
 
@@ -146,6 +161,11 @@ runs phases 1, 9 and 10 only and ends with an {"amr_launches": {...}} line.
 
 runs phases 1 and 11 only and ends with a {"variant_launches": {...}}
 line.
+
+    python3 chip_smoke.py mesh
+
+runs phases 1 and 12 only (phase 3's world and its monolithic map made
+first, for 12a) and ends with a {"mesh_launches": {...}} line.
 
     python3 chip_smoke.py kernels
 
@@ -177,6 +197,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1000,17 +1021,16 @@ def traced(fn):
     return out, wall_ms, (busy_us + hi - lo) / 1e3, len(spans), by_name
 
 
-def profile_map(aligner, reads):
-    """One more PAF-mode map under torch.profiler: the device's busy time
+def profile_run(label, fn):
+    """fn() (a map) once more under torch.profiler: the device's busy time
     (union of kernel and copy intervals), its idle share of the wall, and
     the kernel time by name."""
-    _, wall_ms, busy_ms, n_events, by_name = traced(
-        lambda: aligner.map_reads(reads, slice_size=4096, emit_cigars=False))
+    _, wall_ms, busy_ms, n_events, by_name = traced(fn)
     if busy_ms is None:
         log("  profiler: no device events recorded; device time not "
             "measured")
         return
-    log(f"  profiler, one traced map of {len(reads)} reads: wall "
+    log(f"  profiler, {label}: wall "
         f"{wall_ms:.2f} ms, device events {n_events}, summed "
         f"{sum(t for t, _ in by_name.values()):.2f} ms, busy (union) "
         f"{busy_ms:.2f} ms, idle share {100 - 100 * busy_ms / wall_ms:.2f}%")
@@ -1020,16 +1040,12 @@ def profile_map(aligner, reads):
             log(f"    {total:9.3f} ms  {count:5d} x  {name[:90]}")
 
 
-def phase_map(rng):
-    import torch
-
-    from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
+def map_world(rng):
+    """Phase 3's world: 32 random genomes of 4 Mbp, their k=15 w=10 index
+    and 32768 simulated 1 kb reads at 6% error. Returns (genomes, index,
+    reads, truth)."""
     from megapath_nano_tpu_torch.index.minimizer import MinimizerIndex
-    from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
-    from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
-                                                    banded_sw_scores)
 
-    log("phase 3: map path at 128 Mbp")
     t0 = time.perf_counter()
     genomes = [rng.integers(0, 4, 4_000_000).astype(np.int8)
                for _ in range(32)]
@@ -1040,7 +1056,21 @@ def phase_map(rng):
     t0 = time.perf_counter()
     reads, truth = simulate_reads(rng, genomes, 32768, 1000, 0.06)
     log(f"  simulated 32768 reads in {time.perf_counter() - t0:.1f} s")
+    return genomes, index, reads, truth
 
+
+def phase_map(rng):
+    """Phase 3. Returns (index, genomes, aligner, reads, truth, launches,
+    the timed map's AlignList)."""
+    import torch
+
+    from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
+    from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
+    from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
+                                                    banded_sw_scores)
+
+    log("phase 3: map path at 128 Mbp")
+    genomes, index, reads, truth = map_world(rng)
     aligner = MinimizerAligner(index)     # the default device is the card
     t0 = time.perf_counter()
     aligner.map_reads(reads, slice_size=4096, emit_cigars=False)
@@ -1077,7 +1107,9 @@ def phase_map(rng):
     log("  four more maps of the same reads: "
         + ", ".join(f"{x:.1f}" for x in again) + " reads/s")
     stage_breakdown(aligner, reads[:4096])
-    profile_map(aligner, reads)
+    profile_run(f"one traced map of {len(reads)} reads",
+                lambda: aligner.map_reads(reads, slice_size=4096,
+                                          emit_cigars=False))
 
     long_reads, long_truth = simulate_reads(rng, genomes, 2048, 4000, 0.06)
     before = dict(sw=banded_sw_full.launches, chain=chain_and_extents.launches)
@@ -1090,7 +1122,7 @@ def phase_map(rng):
             chain_and_extents.launches == before["chain"]:
         raise AssertionError("4 kb map did not launch both kernels")
     check_accuracy(res4, long_truth, "4 kb reads")
-    return index, genomes, aligner, reads, truth, all_launches
+    return index, genomes, aligner, reads, truth, all_launches, res
 
 
 # ---------------------------------------------------------------------------
@@ -1119,13 +1151,13 @@ def phase_cap_overflow(index, reads):
     from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
     from megapath_nano_tpu_torch.kernels.chain import chain_and_extents
 
-    log("phase 4b: cap overflow and partial redo, 2048 reads, card vs CPU")
+    log("phase 4b: cap overflow and partial redo, 1024 reads, card vs CPU")
 
     def quarter_caps(slice_n, read_max, occ=0.0):
         return tuple(c // 4 for c in MinimizerAligner._devseed_caps(
             slice_n, read_max, occ))
 
-    sub = reads[:2048]
+    sub = reads[:1024]
     out = {}
     for device in ("cuda", "cpu"):
         al = MinimizerAligner(index, device=device)
@@ -1518,13 +1550,13 @@ PROFILE_SURFACE = (
 
 
 def phase_profile(rng, work):
-    """Phase 7: 32 genomes of 4 Mbp (8 genera x 4 species), 32768 reads of
+    """Phase 7: 32 genomes of 4 Mbp (8 genera x 4 species), 16384 reads of
     1 kb in a geometric mix over the species, the CLI with its default
     flags on the card."""
     log("phase 7: taxon profile at 128 Mbp through the CLI, on the card")
     t0 = time.perf_counter()
     genomes, tax, tax_names = taxon_world(rng, 8, 4, 4_000_000)
-    n_sp, n_reads = len(genomes), 32768
+    n_sp, n_reads = len(genomes), 16384
     weights = 0.75 ** np.arange(n_sp)
     counts = np.floor(n_reads * weights / weights.sum()).astype(np.int64)
     counts[0] += n_reads - counts.sum()
@@ -1624,18 +1656,18 @@ NOISE_GATES = ("--human_filter", "--reassignment", "--spike_filter",
 
 
 def noise_inputs(rng, work):
-    """Phase 8's inputs: 8 genomes of 1 Mbp (2 genera x 4 species) and a
-    2 Mbp human genome as two saved RefDBs, 4096 reads of 1 kb (5% human)
+    """Phase 8's inputs: 8 genomes of 500 kb (2 genera x 4 species) and a
+    1 Mbp human genome as two saved RefDBs, 2048 reads of 1 kb (5% human)
     as FASTQ. Returns the CLI arguments of a run without the output folder
     and the device."""
     # species 0.5-2% from their genus ancestor: close enough for the
     # similar-species marker and the >= 98% tiers of the microbe ladder
-    genomes, tax, tax_names = taxon_world(rng, 2, 4, 1_000_000,
+    genomes, tax, tax_names = taxon_world(rng, 2, 4, 500_000,
                                           divergence=(0.005, 0.02))
-    human = rng.integers(0, 4, 2_000_000).astype(np.int8)
+    human = rng.integers(0, 4, 1_000_000).astype(np.int8)
     weights = np.array([0.30, 0.15, 0.08, 0.04, 0.20, 0.10, 0.05, 0.03])
-    counts = np.round(4096 * 0.95 * weights).astype(np.int64)
-    counts = np.append(counts, 4096 - counts.sum())        # human: 5%
+    counts = np.round(2048 * 0.95 * weights).astype(np.int64)
+    counts = np.append(counts, 2048 - counts.sum())        # human: 5%
     reads, _ = mixed_reads(rng, genomes + [human], counts, 1000, 0.06)
     db_dir, hdb_dir = os.path.join(work, "db8"), os.path.join(work, "hdb")
     save_refdb(genomes, tax, tax_names, "s", db_dir)
@@ -1722,7 +1754,7 @@ def phase_profile_noise(work, args, cpu_run):
 def phase_profiles(rng, between=None):
     """Phases 7 and 8 in a scratch directory that is removed after: phase
     8's inputs first and its CPU run started in the background, then phase
-    7, then `between()` (the full smoke's phases 9 and 10, which so overlap
+    7, then `between()` (the full smoke's phases 9 to 12, which so overlap
     the CPU run instead of waiting after it), then phase 8's card run and
     the comparison. Returns (the kernels' launch counts on the profile
     path: phase 7's run and phase 8's card run; between()'s result)."""
@@ -1999,7 +2031,8 @@ def phase_amr(rng, work):
     from megapath_nano_tpu_torch.amr import module as amr_module
     from megapath_nano_tpu_torch.amr.db import AMRGeneDB
 
-    log("phase 9: AMR through the CLI at 32 Mbp, 3000 genes, on the card")
+    log(f"phase 9: AMR through the CLI at 32 Mbp, {AMR_SIZES['genes']} "
+        f"genes, on the card")
     paths, present, absent, whole = amr_world(rng, work)
     refdb, amrdb = build_dbs(paths, work)
     out = os.path.join(work, "amr_out")
@@ -2609,6 +2642,248 @@ def phase_variant(rng):
     return {"amplicon": launches, "train_variant": train_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh path (dist/fused_sharded.py on dist/mesh.py)
+
+
+# phase 12's sizes: 12a's reads for card against CPU and for save / load;
+# 12b's world (genomes of 4 Mbp over 4 shards, 1 kb reads at 6% error) and
+# measure_scaling's arguments (none: its defaults)
+MESH_SIZES = dict(cpu_reads=512, reload_reads=2048, genomes=256,
+                  genome_len=4_000_000, reads=16384, scaling={})
+MESH_SLICE = 2048     # ShardMapAligner.map_reads' default slice
+
+
+def sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def mesh_aligner(planes, n_data, device=None):
+    """ShardMapAligner over a one-process (n_data, S) mesh: on the card
+    through make_mesh's default devices (every visible CUDA device; with
+    one card every cell is cuda:0, run in turn), elsewhere on `device`."""
+    from megapath_nano_tpu_torch.dist.fused_sharded import ShardMapAligner
+    from megapath_nano_tpu_torch.dist.mesh import make_mesh
+
+    device = device or CARD
+    mesh = make_mesh(planes.n_shards, n_data) if device == "cuda" else \
+        make_mesh(planes.n_shards, n_data, devices=[device])
+    return ShardMapAligner(planes, mesh, device=device)
+
+
+def cut_out_cap(al, out_cap=4):
+    caps = al._caps
+    al._caps = lambda slice_n, read_max: \
+        caps(slice_n, read_max)[:3] + (out_cap,)
+
+
+def first_reads(al, n):
+    """The rows of AlignList `al` whose read id is below n, as an AlignList
+    (the map of the first n reads)."""
+    from megapath_nano_tpu_torch.align.records import AlignList
+
+    return AlignList(al.data[al.data["read_id"] < n], al.sequence_names,
+                     al.assembly_names, [], None)
+
+
+def mesh_host_breakdown(al, reads):
+    """One mesh map of `reads` with a host clock around each stage of
+    dist/fused_sharded.py's slice (read packing, the cells' dispatches,
+    i.e. their enqueue, the row blocks' merge, the fetch, which waits for
+    the device, and the collect); the rest of the wall is the host merge
+    (remap, top-K gate) and the loop. Logs and returns {stage: ms}."""
+    from megapath_nano_tpu_torch.dist import fused_sharded
+
+    stages = {"pack": "_pack_reads2",
+              "dispatch (enqueue)": "_fused_map_dispatch_devseed",
+              "merge on the device": "_gather_blocks",
+              "fetch (waits for the device)": "_to_host_u16",
+              "collect": "fused_collect_np"}
+    spent = dict.fromkeys(stages, 0.0)
+    saved = {attr: getattr(fused_sharded, attr) for attr in stages.values()}
+
+    def timed(stage, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[stage] += time.perf_counter() - t0
+        return run
+
+    for stage, attr in stages.items():
+        setattr(fused_sharded, attr, timed(stage, saved[attr]))
+    try:
+        _, wall = timed_map(al, reads)
+    finally:
+        for attr, fn in saved.items():
+            setattr(fused_sharded, attr, fn)
+    out = {k: 1e3 * v for k, v in spent.items()}
+    out["other host (merge, gate, loop)"] = 1e3 * wall - sum(out.values())
+    out["wall"] = 1e3 * wall
+    log(f"  host time by stage, one mesh map of {len(reads)} reads (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def timed_map(al, reads):
+    t0 = time.perf_counter()
+    res = al.map_reads(reads, slice_size=MESH_SLICE)
+    sync()
+    return res, time.perf_counter() - t0
+
+
+def phase_mesh_equality(genomes, reads, mono, work):
+    """Phase 12a on phase 3's world: the 32 genomes over 4 shards, the
+    32768 reads through meshes (1, 4) and (2, 4) on the card equal to phase
+    3's monolithic map; card against CPU on the first reads with mesh
+    (2, 4), also with the rows cap cut to 4 (every cell overflows, the cut
+    reads are redone host-seeded); the planes saved, loaded and mapped
+    again."""
+    from megapath_nano_tpu_torch.dist.fused_sharded import ShardedIndexPlanes
+
+    log("phase 12a: the mesh path on phase 3's world (128 Mbp, 4 shards)")
+    t0 = time.perf_counter()
+    planes = ShardedIndexPlanes.build(
+        genomes, [f"genome{i}" for i in range(len(genomes))], 4)
+    log(f"  ShardedIndexPlanes.build: {time.perf_counter() - t0:.1f} s, "
+        f"planes {planes.keys32.shape} keys, {planes.seq_data.shape} bases")
+    for n_data in (1, 2):
+        al = mesh_aligner(planes, n_data)
+        res, dt = timed_map(al, reads)
+        log(f"  mesh ({n_data}, 4): {len(reads)} reads in {dt:.3f} s (first "
+            f"map: planes upload included), overflow_stats "
+            f"{al.overflow_stats}")
+        require_same_records(f"mesh ({n_data}, 4) vs the monolithic map",
+                             mono, res)
+    path = os.path.join(work, "planes")
+
+    def save():
+        t0 = time.perf_counter()
+        planes.save(path)
+        return time.perf_counter() - t0
+
+    # the save (zlib, which lets go of the interpreter lock) runs beside
+    # the card-vs-CPU maps
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        saving = pool.submit(save)
+        n = MESH_SIZES["cpu_reads"]
+        for cut in (False, True):
+            out = {}
+            for device in (CARD, "cpu"):
+                al = mesh_aligner(planes, 2, device)
+                if cut:
+                    cut_out_cap(al)
+                res, dt = timed_map(al, reads[:n])
+                cap = ", rows cap 4" if cut else ""
+                log(f"  mesh (2, 4) on {device}{cap}: {n} reads in "
+                    f"{dt:.1f} s, overflow_stats "
+                    f"{al.overflow_stats}, cap scales {al._cap_scales}")
+                out[device] = (res, dict(al.overflow_stats),
+                               dict(al._cap_scales))
+            (gpu, gpu_stats, gpu_sc), (cpu, cpu_stats, cpu_sc) = \
+                out[CARD], out["cpu"]
+            if cut and gpu_stats["reads_redone"] < 1:
+                raise AssertionError(f"no read was redone: {gpu_stats}")
+            if gpu_stats != cpu_stats or gpu_sc != cpu_sc:
+                raise AssertionError(f"card and CPU differ: {gpu_stats} / "
+                                     f"{cpu_stats}, {gpu_sc} / {cpu_sc}")
+            label = "mesh (2, 4), " + ("rows cap 4, " if cut else "")
+            require_same_records(label + "card vs CPU", gpu, cpu)
+            require_same_records(label + "vs the monolithic map",
+                                 first_reads(mono, n), gpu)
+        save_s = saving.result()
+    t0 = time.perf_counter()
+    loaded = ShardedIndexPlanes.load(path)
+    log(f"  ShardedIndexPlanes.save {save_s:.1f} s (beside the maps above), "
+        f".load {time.perf_counter() - t0:.1f} s")
+    n = MESH_SIZES["reload_reads"]
+    res, _ = timed_map(mesh_aligner(loaded, 1), reads[:n])
+    require_same_records("loaded planes, mesh (1, 4), vs the monolithic map",
+                         first_reads(mono, n), res)
+
+
+def phase_mesh_full(rng):
+    """Phase 12b: 1 Gbp over 4 shards, mesh (1, 4), after a warm-up; the
+    accuracy bars; mesh (2, 4) equal; one traced run. Returns the kernels'
+    launches in the timed run."""
+    import torch
+
+    from megapath_nano_tpu_torch.dist.fused_sharded import ShardedIndexPlanes
+
+    n_gen, glen, n = (MESH_SIZES[k] for k in ("genomes", "genome_len",
+                                              "reads"))
+    log(f"phase 12b: the mesh path at {n_gen * glen} bp ({n_gen} genomes of "
+        f"{glen} bp, 4 shards), {n} reads of 1 kb")
+    t0 = time.perf_counter()
+    genomes = [rng.integers(0, 4, glen).astype(np.int8)
+               for _ in range(n_gen)]
+    reads, truth = simulate_reads(rng, genomes, n, 1000, 0.06)
+    log(f"  genomes and reads drawn in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    planes = ShardedIndexPlanes.build(
+        genomes, [f"genome{i}" for i in range(n_gen)], 4)
+    entries = (planes.keys32 != 2 ** 30).sum(axis=1).tolist()
+    log(f"  ShardedIndexPlanes.build: {time.perf_counter() - t0:.1f} s, "
+        f"index entries by shard {entries}, bases by shard "
+        f"{planes.seq_lengths.sum(axis=1).tolist()}")
+    del genomes
+    al = mesh_aligner(planes, 1)
+    _, dt = timed_map(al, reads)
+    log(f"  warm-up (the same reads; planes upload and allocator growth "
+        f"included): {dt:.3f} s")
+    kernels = kernel_wrappers()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    res, dt = timed_map(al, reads)
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() \
+        if torch.cuda.is_available() else "not measured"
+    log(f"  timed run, mesh (1, 4): {n} reads in {dt:.3f} s = "
+        f"{n / dt:.1f} reads/s; launches {launches}; overflow_stats "
+        f"{al.overflow_stats}; cap scales {al._cap_scales}; "
+        f"max_memory_allocated {peak} B")
+    if launches["banded_sw_full"] < 1 or launches["chain_and_extents"] < 1:
+        raise AssertionError(f"the mesh path did not launch sw_full and "
+                             f"chain: {launches}")
+    check_accuracy(res, truth, "1 kb reads, mesh (1, 4)")
+    mesh_host_breakdown(al, reads)
+    res2, dt = timed_map(mesh_aligner(planes, 2), reads)
+    log(f"  mesh (2, 4): {n} reads in {dt:.3f} s (first map: planes upload "
+        f"included)")
+    require_same_records("mesh (2, 4) vs mesh (1, 4)", res, res2)
+    profile_run(f"one traced mesh (1, 4) map of {n} reads",
+                lambda: timed_map(al, reads))
+    return launches
+
+
+def phase_mesh(rng, genomes, reads, mono):
+    """Phase 12: 12a on phase 3's world (genomes, reads and its monolithic
+    PAF map), 12b, then measure_scaling on the card. Returns the kernels'
+    launches in 12b's timed run."""
+    from megapath_nano_tpu_torch.dist.scaling import measure_scaling
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mpn_mesh_") as work:
+        phase_mesh_equality(genomes, reads, mono, work)
+    t1 = time.perf_counter()
+    launches = phase_mesh_full(rng)
+    t2 = time.perf_counter()
+    log("phase 12c: measure_scaling() on the card (its defaults: 1, 2, 4 "
+        "and 8 shards of 100 kb in one process, 512 reads of 800 b)")
+    for pt in measure_scaling(device=CARD, **MESH_SIZES["scaling"]):
+        log(f"  mesh (data={pt.n_data}, shard={pt.n_shards}): "
+            f"{pt.reads_per_s:.1f} reads/s, efficiency {pt.efficiency:.4f}")
+    log(f"  phase 12 wall: 12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, 12c "
+        f"{time.perf_counter() - t2:.1f} s")
+    return launches
+
+
 def nvidia_smi_line():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2618,16 +2893,16 @@ def nvidia_smi_line():
 
 def kernels_line(kstats, paf_launches=None, cigar_launches=None,
                  profile_launches=None, amr_launches=None,
-                 variant_launches=None):
+                 variant_launches=None, mesh_launches=None):
     """The per-kernel records as one JSON line. With the launch counts of
     the paths: {"kernels": [...]}, each record with `launches` (the count
     from the kernel's own map path: the PAF-mode map for sw_full and chain,
     the CIGAR-mode map for sw_scores) and every path's counts in
     `launches_by_path` (the two maps; the taxon profile: phase 7's run and
     phase 8's card run together; phase 9's amr step; phase 10's sharded
-    run; phase 11's cli.amplicon and cli.train_variant runs). Without them
-    (no map ran): {"kernel_checks": [...]}, the records without those two
-    keys."""
+    run; phase 11's cli.amplicon and cli.train_variant runs; phase 12b's
+    timed mesh map). Without them (no map ran): {"kernel_checks": [...]},
+    the records without those two keys."""
     kernels = []
     for name, (src, rep) in KERNELS.items():
         rec = {"name": name, "route": "cuda", "source": src, "replaces": rep}
@@ -2639,7 +2914,8 @@ def kernels_line(kstats, paf_launches=None, cigar_launches=None,
                        "sharded": amr_launches["sharded"][name],
                        "amplicon": variant_launches["amplicon"][name],
                        "train_variant":
-                           variant_launches["train_variant"][name]}
+                           variant_launches["train_variant"][name],
+                       "mesh": mesh_launches[name]}
             rec["launches"] = by_path["paf_map"] or by_path["cigar_map"]
         rec.update(kstats[name])
         if paf_launches is not None:
@@ -2652,10 +2928,10 @@ def kernels_line(kstats, paf_launches=None, cigar_launches=None,
 def main(argv):
     import torch
 
-    if argv not in ([], ["kernels"], ["profile"], ["amr"], ["variant"]) \
-            and argv[:1] not in (["chain"], ["maps"]):
+    if argv not in ([], ["kernels"], ["profile"], ["amr"], ["variant"],
+                    ["mesh"]) and argv[:1] not in (["chain"], ["maps"]):
         raise SystemExit("usage: chip_smoke.py [kernels | profile | amr | "
-                         "variant | chain [TREE] | maps [TREE]]")
+                         "variant | mesh | chain [TREE] | maps [TREE]]")
     rng = np.random.default_rng(2026)
     if argv == ["profile"]:
         phase_device()
@@ -2681,9 +2957,25 @@ def main(argv):
         log(nvidia_smi_line())
         print(json.dumps({"variant_launches": variant_launches}), flush=True)
         return
+    if argv == ["mesh"]:
+        from megapath_nano_tpu_torch.align.pipeline import MinimizerAligner
+
+        t0 = time.perf_counter()
+        phase_device()
+        log("phase 3's world and its monolithic PAF map, for phase 12a")
+        genomes, index, reads, _ = map_world(rng)
+        mono = MinimizerAligner(index).map_reads(reads, slice_size=4096,
+                                                 emit_cigars=False)
+        del index
+        mesh_launches = phase_mesh(rng, genomes, reads, mono)
+        log(f"wall time of phases 1 and 12: "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(nvidia_smi_line())
+        print(json.dumps({"mesh_launches": mesh_launches}), flush=True)
+        return
     if argv[:1] == ["maps"]:
         phase_device()
-        index, genomes, aligner, reads, truth, _ = phase_map(rng)
+        index, genomes, aligner, reads, truth, _, _ = phase_map(rng)
         phase_cigar_map(rng, index, genomes, aligner, reads, truth)
         log(nvidia_smi_line())
         return
@@ -2702,7 +2994,8 @@ def main(argv):
         log(nvidia_smi_line())
         print(kernels_line(kstats), flush=True)
         return
-    index, genomes, aligner, reads, truth, paf_launches = phase_map(rng)
+    index, genomes, aligner, reads, truth, paf_launches, mono = \
+        phase_map(rng)
     phase_card_vs_cpu(index, aligner, reads)
     phase_cap_overflow(index, reads)
     marks.append(("phases 3-4", time.perf_counter()))
@@ -2710,18 +3003,21 @@ def main(argv):
                                         truth)
     phase_cigar_card_vs_cpu(index, aligner, reads)
     marks.append(("phases 5-6", time.perf_counter()))
-    del index, genomes, aligner, reads, truth
-    # phases 9, 10 and 11 run between 7 and 8, beside phase 8's CPU run
-    profile_launches, (amr_launches, variant_launches) = phase_profiles(
-        rng, between=lambda: (phase_amr_sharded(rng), phase_variant(rng)))
-    marks.append(("phases 7-11", time.perf_counter()))
+    del index, aligner, truth
+    # phases 9, 10, 11 and 12 run between 7 and 8, beside phase 8's CPU
+    # run; phase 12a maps phase 3's world again
+    profile_launches, (amr_launches, variant_launches, mesh_launches) = \
+        phase_profiles(rng, between=lambda: (
+            phase_amr_sharded(rng), phase_variant(rng),
+            phase_mesh(rng, genomes, reads, mono)))
+    marks.append(("phases 7-12", time.perf_counter()))
     log("wall time by phase (s): " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
     log(nvidia_smi_line())
     print(kernels_line(kstats, paf_launches, cigar_launches,
-                       profile_launches, amr_launches, variant_launches),
-          flush=True)
+                       profile_launches, amr_launches, variant_launches,
+                       mesh_launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

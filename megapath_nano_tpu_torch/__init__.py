@@ -35,6 +35,10 @@ Layer map:
   db/        RefDB: sequences, taxonomy, index; the on-disk format is shared
              with megapath_nano_tpu
   io/        FASTQ / FASTA with QC, adapter trimming, SAM / BAM, demux
+  dist/      the sharded index: the host loop (sharded_aligner) and the
+             mesh path (fused_sharded: ShardMapAligner and the stacked
+             ShardedIndexPlanes, on mesh's one-process or one-rank-a-cell
+             torch.distributed mesh), and its scaling harness (scaling)
   align/     seed -> chain -> extend map path (pipeline, device_seed, chain),
              host anchor collection (anchors) and the AlignList schema
              (records)

@@ -1,7 +1,8 @@
 """Device seed stage as torch ops: sketch -> lookup -> anchors -> groups.
 
 Port of megapath_nano_tpu.align.device_seed (`hash32`, `sketch_winners`,
-`_bounded_lower_bound`, `build_groups_device`), bit-equal to it. The seeding
+`_bounded_lower_bound`, `build_groups_device`, and `sketch_device` and
+`_blocked_cummax`, which no map path calls), bit-equal to it. The seeding
 is minimap2's minimizer scheme with the Wang hash of cpp/mpn_minimizer.cc,
 the same window and tie rules, max_occ masking, gap-break grouping and
 per-group even subsample as the host path (align/anchors.py).
@@ -111,6 +112,51 @@ def sketch_winners(codes: torch.Tensor, qlens: torch.Tensor, *, k: int,
     Pm_prev = _shift_row(Pm, 1, -1)
     neww = emit & (~emit_prev | (Pm != Pm_prev))
     return neww, Hm, Pm, H
+
+
+def sketch_device(codes: torch.Tensor, qlens: torch.Tensor, *, k: int,
+                  w: int):
+    """The reference's parity wrapper over sketch_winners with its original
+    output layout, flat (n*L,) tensors indexed by absolute position
+    j = rid*L + pos: win (int32 0/1: position j's k-mer is an emitted
+    minimizer), H (every position's canonical k-mer hash, a uint32 value in
+    int64, 0xFFFFFFFF where invalid) and strand (int32 0/1). No map path
+    calls it; build_groups_device uses sketch_winners directly."""
+    n, L = codes.shape
+    dev = codes.device
+    neww, Hm, Pm, H = sketch_winners(codes, qlens, k=k, w=w)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)[:, None] * L
+    j = torch.where(neww, rows + (Pm >> 1), n * L).reshape(-1)
+    win = _scatter_drop(n * L, j, torch.ones_like(j))
+
+    # per-position strand plane (the original API's companion)
+    pos_i = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    good = (codes >= 0) & (codes < 4) & (pos_i < qlens[:, None])
+    c = torch.where(good, codes.to(torch.int64), 0)
+    kf = torch.zeros((n, L), dtype=torch.int64, device=dev)
+    kr = torch.zeros((n, L), dtype=torch.int64, device=dev)
+    for d in range(k):
+        shifted = _shift_row(c, d, 0)
+        kf = kf | (shifted << (2 * d))
+        kr = kr | ((3 - shifted) << (2 * (k - 1 - d)))
+    strand = (kr < kf).to(torch.int32)
+    return win, H.reshape(-1), strand.reshape(-1)
+
+
+def _blocked_cummax(x: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """Cumulative max over a 1-D int32 tensor by the reference's 2-level
+    block decomposition: a scan within each block of a (B, block) view,
+    a scan over the block maxima, and the carry of the blocks before.
+    Lengths that are no multiple of `block` take one plain scan. No map
+    path calls it (build_groups_device runs torch.cummax)."""
+    n = x.shape[0]
+    if n % block:
+        return torch.cummax(x, dim=0).values
+    intra = torch.cummax(x.reshape(n // block, block), dim=1).values
+    carry = torch.cummax(intra[:, -1], dim=0).values
+    carry = torch.cat([torch.full((1,), -(2 ** 31) + 1, dtype=x.dtype,
+                                  device=x.device), carry[:-1]])
+    return torch.maximum(intra, carry[:, None]).reshape(n)
 
 
 def _bounded_lower_bound(keys, q, lo, hi, steps: int):

@@ -441,6 +441,30 @@ def _stable_uniform(seed: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (x >> np.uint64(11)).astype(np.float64) / float(1 << 53)
 
 
+def _cigar_stats(cigar, read, ref, read_start, ref_start):
+    """matches / edit distance from a CIGAR walk (M runs compared
+    base-wise). No map path calls it."""
+    m = 0
+    nm = 0
+    qi, ti = read_start, ref_start
+    for length, op in cigar:
+        if op == "M":
+            a = read[qi: qi + length]
+            b = ref[ti: ti + length]
+            eq = int(np.sum(a == b))
+            m += eq
+            nm += length - eq
+            qi += length
+            ti += length
+        elif op == "I":
+            nm += length
+            qi += length
+        elif op == "D":
+            nm += length
+            ti += length
+    return m, nm
+
+
 def select_alignments(rid, score, q_from, q_to, seq, strand, t_from, t_to,
                       *, secondary_ratio: float = 1.0,
                       mask_level: float = 0.5, max_secondary: int = 50):

@@ -30,7 +30,8 @@ per-index-batch mid-occurrence filter.
 The port's own copy of megapath_nano_tpu/dist/sharded_aligner.py: every
 shard's MinimizerAligner maps on the `device` given to `build` (the GPU
 unless the caller asks for "cpu"), one shard after another. The mesh path
-(`fused_sharded`) is not ported yet.
+is `dist/fused_sharded.ShardMapAligner` (one process, or one rank a cell
+on torch.distributed; `dist/mesh.py`).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """State carried across from the TPU package: the host index
-(`index_from_numpy`), the reference DB of the taxon profile
+(`index_from_numpy`), the sharded index planes of the mesh path
+(`sharded_planes_from_numpy`), the reference DB of the taxon profile
 (`refdb_from_numpy`), an AMR gene DB (`amr_db_from_numpy`), the device
 planes (`device_planes_from_numpy`) and the variant model's weights
 (`variant_params_from_numpy`, `variant_params_to_numpy`). The map, profile
@@ -101,6 +102,36 @@ def index_from_numpy(src) -> MinimizerIndex:
         seq_offsets=arr(src.seq_offsets, np.int64))
 
 
+def sharded_planes_from_numpy(src):
+    """Build the port's ShardedIndexPlanes (dist/fused_sharded.py) from any
+    object with the same fields (the TPU package's ShardedIndexPlanes, or a
+    loaded archive), field for field, without rebuilding: the stacked planes
+    in their on-disk dtypes, each shard's host index, when `src` holds
+    them, through `index_from_numpy`."""
+    # imported here: dist.fused_sharded imports align.pipeline, which
+    # imports this
+    from megapath_nano_tpu_torch.dist.fused_sharded import ShardedIndexPlanes
+
+    def arr(x, dtype):
+        return np.ascontiguousarray(x, dtype)
+
+    shard_of_seq = getattr(src, "shard_of_seq", None)
+    return ShardedIndexPlanes(
+        keys32=arr(src.keys32, np.int32), pos_t=arr(src.pos_t, np.int32),
+        pos_ss=arr(src.pos_ss, np.int32),
+        seq_data=arr(src.seq_data, np.int8),
+        seq_offsets=arr(src.seq_offsets, np.int32),
+        seq_lengths=arr(src.seq_lengths, np.int32),
+        seq_global=arr(src.seq_global, np.int32),
+        k=int(src.k), w=int(src.w), seq_bits=int(src.seq_bits),
+        global_seq_names=list(src.global_seq_names),
+        global_seq_lengths=arr(src.global_seq_lengths, np.int64),
+        local_indexes=[index_from_numpy(x)
+                       for x in getattr(src, "local_indexes", None) or []],
+        shard_of_seq=(None if shard_of_seq is None
+                      else arr(shard_of_seq, np.int32)))
+
+
 def refdb_from_numpy(src):
     """Build the port's RefDB from any object with the same fields (the TPU
     package's RefDB), field for field: the index through `index_from_numpy`,
@@ -174,12 +205,15 @@ def load_variant_params(net, params):
     return net
 
 
-def variant_params_from_numpy(params, *, device="cpu"):
-    """A ClairNet on `device` holding the flax tree's weights (hidden and
-    slice widths read off the LSTM kernels)."""
-    # imported here: variant.model imports align.pipeline, which imports
-    # this
+def variant_params_from_numpy(params, *, device="cuda"):
+    """A ClairNet on `device` (the GPU unless the caller asks for "cpu")
+    holding the flax tree's weights (hidden and slice widths read off the
+    LSTM kernels)."""
+    # imported here: variant.model and align.pipeline import this
+    from megapath_nano_tpu_torch.align.pipeline import require_device
     from megapath_nano_tpu_torch.variant.model import ClairNet
+
+    require_device(device, "variant_params_from_numpy")
 
     cell = (params["params"] if "params" in params else params)["LSTMCell_0"]
     slice_dim, hidden = np.shape(cell["ii"]["kernel"])

@@ -498,6 +498,51 @@ def test_sharded_aligner_card_matches_cpu(cuda, emit_cigars):
     assert gpu.cigar_map == cpu.cigar_map
 
 
+@pytest.mark.parametrize("n_data,n_shards,cut", [(1, 2, False),
+                                                 (2, 2, False),
+                                                 (2, 2, True)])
+def test_shard_map_aligner_card_matches_cpu(cuda, n_data, n_shards, cut):
+    """ShardMapAligner (one process) over a (n_data, n_shards) mesh on the
+    card and on the CPU, and with the rows cap cut to 4 (every cell
+    overflows, the cut reads are redone host-seeded): the AlignList equal
+    in all 18 fields, the overflow statistics equal, and on the card every
+    cell launches both kernels."""
+    from megapath_nano_tpu_torch.dist.fused_sharded import (
+        ShardedIndexPlanes, ShardMapAligner)
+    from megapath_nano_tpu_torch.dist.mesh import make_mesh
+    from megapath_nano_tpu_torch.utils.dna import (mutate, random_sequence,
+                                                   revcomp)
+
+    rng = np.random.default_rng(3)
+    genomes = [random_sequence(rng, 20000) for _ in range(6)]
+    names = [f"g{i}" for i in range(6)]
+    reads = []
+    for _ in range(96):
+        g = genomes[int(rng.integers(0, 6))]
+        s = int(rng.integers(0, len(g) - 900))
+        r = mutate(rng, g[s: s + 900], 0.03, 0.015, 0.015)
+        reads.append(revcomp(r) if rng.integers(0, 2) else r)
+    planes = ShardedIndexPlanes.build(genomes, names, n_shards)
+    kernels = (sw.banded_sw_full, chain.chain_and_extents)
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = [k.launches for k in kernels]
+        al = ShardMapAligner(planes, make_mesh(n_shards, n_data,
+                                               devices=[device]),
+                             device=device)
+        if cut:
+            caps = al._caps
+            al._caps = lambda n, m: caps(n, m)[:3] + (4,)
+        res = al.map_reads(reads, slice_size=64)
+        out[device] = (res, dict(al.overflow_stats),
+                       [k.launches - b for k, b in zip(kernels, before)])
+    (gpu, gpu_stats, launched), (cpu, cpu_stats, none) = \
+        out["cuda"], out["cpu"]
+    assert gpu_stats == cpu_stats and (gpu_stats["reads_redone"] > 0) == cut
+    assert min(launched) >= 2 * n_data * n_shards and none == [0, 0]
+    assert len(gpu.data) > 0 and np.array_equal(gpu.data, cpu.data)
+
+
 @pytest.mark.parametrize("name", ["model-000.pkl", "model-001.pkl",
                                   "model-002.pkl"])
 def test_clairnet_card_matches_cpu(cuda, name):

@@ -51,7 +51,12 @@ def test_package_imports_without_jax():
             "megapath_nano_tpu_torch.db.taxdump",
             "megapath_nano_tpu_torch.db.sqlite_taxonomy",
             "megapath_nano_tpu_torch.db.refseq_plan",
-            "megapath_nano_tpu_torch.dist.sharded_aligner"} <= set(names)
+            "megapath_nano_tpu_torch.dist.sharded_aligner",
+            "megapath_nano_tpu_torch.dist.fused_sharded",
+            "megapath_nano_tpu_torch.dist.mesh",
+            "megapath_nano_tpu_torch.dist.scaling",
+            "megapath_nano_tpu_torch.align.chain",
+            "megapath_nano_tpu_torch.align.device_seed"} <= set(names)
     assert {f"megapath_nano_tpu_torch.amr.{m}" for m in (
         "db", "consensus", "orf", "protein", "scan", "report",
         "module")} <= set(names)

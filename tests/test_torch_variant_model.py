@@ -126,7 +126,7 @@ def test_port_model_through_jax_and_back(tmp_path):
 def test_state_functions_round_trip():
     j = jmodel.VariantModel(seed=4, hidden=16)
     params = jax.device_get(j.params)
-    net = state.variant_params_from_numpy(params)
+    net = state.variant_params_from_numpy(params, device="cpu")
     assert (net.hidden, net.slice_dim) == (16, 64)
     back = state.variant_params_to_numpy(net)
     flat0 = jax.tree_util.tree_flatten_with_path(params)[0]
@@ -214,6 +214,16 @@ def test_cuda_without_a_card_raises():
         tmodel.VariantModel()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpretrained.default_ensemble()
+
+
+def test_variant_params_default_to_the_card():
+    """state.variant_params_from_numpy defaults to device="cuda" like every
+    other entry point of the port, and raises without a CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    params = jax.device_get(jmodel.VariantModel(seed=4, hidden=16).params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state.variant_params_from_numpy(params)
 
 
 def test_gt21_labels_match():
