@@ -32,6 +32,7 @@ the originals.
 
 from __future__ import annotations
 
+import contextvars
 import logging
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -52,6 +53,7 @@ from megapath_nano_tpu_torch.kernels.sw import (banded_sw_full,
 from megapath_nano_tpu_torch.native.banded import banded_align_batch
 from megapath_nano_tpu_torch.state import device_planes_from_numpy
 from megapath_nano_tpu_torch.utils.dna import revcomp
+from megapath_nano_tpu_torch.utils.log import count, span
 
 # ---------------------------------------------------------------------------
 # device part
@@ -300,7 +302,17 @@ def _fused_map_dispatch_devseed(packed2, exc_rid, exc_pos, qlens, keys32,
 
 def _to_host_u16(rows: torch.Tensor) -> np.ndarray:
     """Device rows (int32 holding uint16 values) -> host uint16 matrix."""
-    return rows.cpu().numpy().astype(np.uint16)
+    with span("map.fetch"):
+        return rows.cpu().numpy().astype(np.uint16)
+
+
+def _count_windows(qlens, wlens, rows, q_max, t_max):
+    """Counters of an extension batch: its windows, their real bases, and
+    the bytes of the padded (rows, q_max) and (rows, t_max) windows the
+    device scores."""
+    count("windows", len(qlens))
+    count("window_bytes", sum(qlens) + sum(wlens))
+    count("window_bytes_padded", rows * (q_max + t_max))
 
 
 # ---------------------------------------------------------------------------
@@ -797,10 +809,7 @@ class MinimizerAligner:
         if not reads:
             return AlignList.empty(self.index.seq_names,
                                    self.meta.assembly_names, read_names or [])
-        p = self.params
-        groups = collect_anchors(self.index, reads, max_occ=p.max_occ,
-                                 min_group_anchors=p.min_group_anchors,
-                                 gap_break=p.gap_break)
+        groups = self._seed(reads)
         if groups.n_groups == 0:
             return AlignList.empty(self.index.seq_names,
                                    self.meta.assembly_names, read_names or [])
@@ -813,22 +822,24 @@ class MinimizerAligner:
         """One AlignList from per-slice (or partial-redo) parts, sorted by
         (read, sequence, position); with emit_cigars their cigar_maps are
         merged (read ids are global, so the keys do not collide)."""
-        datas = [al.data for al in parts if len(al)]
-        if not datas:
-            return AlignList.empty(self.index.seq_names,
-                                   self.meta.assembly_names, read_names or [])
-        cigar_map: dict | None = None
-        if emit_cigars:
-            cigar_map = {}
-            for al in parts:
-                if len(al):
-                    cigar_map.update(al.cigar_map or {})
-        data = np.concatenate(datas)
-        order = np.lexsort((data["sequence_from"], data["sequence_id"],
-                            data["read_id"]))
-        return AlignList(data[order], list(self.index.seq_names),
-                         list(self.meta.assembly_names), read_names or [],
-                         cigar_map)
+        with span("map.concat"):
+            datas = [al.data for al in parts if len(al)]
+            if not datas:
+                return AlignList.empty(self.index.seq_names,
+                                       self.meta.assembly_names,
+                                       read_names or [])
+            cigar_map: dict | None = None
+            if emit_cigars:
+                cigar_map = {}
+                for al in parts:
+                    if len(al):
+                        cigar_map.update(al.cigar_map or {})
+            data = np.concatenate(datas)
+            order = np.lexsort((data["sequence_from"], data["sequence_id"],
+                                data["read_id"]))
+            return AlignList(data[order], list(self.index.seq_names),
+                             list(self.meta.assembly_names), read_names or [],
+                             cigar_map)
 
     def _devseed_cutoff(self, counts: np.ndarray, n_reads: int,
                         caps=None) -> int:
@@ -842,6 +853,7 @@ class MinimizerAligner:
         if cutoff < n_reads:
             st["overflow_slices"] += 1
             st["reads_redone"] += n_reads - cutoff
+            count("redo_reads", n_reads - cutoff)
             if caps is not None:
                 wtot_max, a_max, g_max, out_cap = caps
                 sc = self._cap_scales
@@ -883,91 +895,107 @@ class MinimizerAligner:
         """Pack + device-seeded dispatch for one slice (padded to slice_n
         rows). Returns (device rows, ctx) with ctx = (qlens, caps); the
         dispatch is asynchronous on a CUDA device."""
-        p = self.params
-        idx = self.index
-        seq_off, seq_len = self._device_index_meta()
-        keys32, pos_t, ss16, lut2, runcnt, lut_bits, n_bisect = \
-            self._device_index_planes()
+        with span("map.submit"):
+            p = self.params
+            idx = self.index
+            seq_off, seq_len = self._device_index_meta()
+            keys32, pos_t, ss16, lut2, runcnt, lut_bits, n_bisect = \
+                self._device_index_planes()
 
-        packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max,
-                                                 n_rows=slice_n)
-        qlens_a = np.zeros(slice_n, np.int32)
-        qlens_a[:len(reads)] = [len(r) for r in reads]
+            packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max,
+                                                     n_rows=slice_n)
+            qlens_a = np.zeros(slice_n, np.int32)
+            qlens_a[:len(reads)] = [len(r) for r in reads]
 
-        wtot_max, a_max, g_max = self._caps_scaled(slice_n, read_max)
-        out_cap = 2048
-        while out_cap < (p.devseed_out_per_read * self._cap_scales["out"]
-                         * slice_n):
-            out_cap *= 2
-        out_cap = min(out_cap, g_max)
-        q_max, t_max, band = self._ext_shape(read_max)
-        up = self._upload
-        fut = _fused_map_dispatch_devseed(
-            up(packed2), up(exc_rid), up(exc_pos), up(qlens_a), keys32,
-            pos_t, ss16, lut2, runcnt, self._device_refs(), seq_off,
-            seq_len, k=idx.k, w=idx.w, max_occ=p.max_occ,
-            min_group_anchors=p.min_group_anchors, gap_break=p.gap_break,
-            cap=p.fused_anchor_cap, seq_bits=self._seq_bits(),
-            lut_bits=lut_bits, n_bisect=n_bisect, wtot_max=wtot_max,
-            a_max=a_max, g_max=g_max, out_cap=out_cap, q_max=q_max,
-            t_max=t_max, band=band, match=p.match, mismatch=p.mismatch,
-            gap_open=p.gap_open, gap_extend=p.gap_extend,
-            min_chain_score=p.min_chain_score,
-            max_per_read=p.max_alignments_per_read,
-            window_pad=p.window_pad)
-        return fut, (qlens_a, (wtot_max, a_max, g_max, out_cap))
+            wtot_max, a_max, g_max = self._caps_scaled(slice_n, read_max)
+            out_cap = 2048
+            while out_cap < (p.devseed_out_per_read * self._cap_scales["out"]
+                             * slice_n):
+                out_cap *= 2
+            out_cap = min(out_cap, g_max)
+            q_max, t_max, band = self._ext_shape(read_max)
+            up = self._upload
+            fut = _fused_map_dispatch_devseed(
+                up(packed2), up(exc_rid), up(exc_pos), up(qlens_a), keys32,
+                pos_t, ss16, lut2, runcnt, self._device_refs(), seq_off,
+                seq_len, k=idx.k, w=idx.w, max_occ=p.max_occ,
+                min_group_anchors=p.min_group_anchors, gap_break=p.gap_break,
+                cap=p.fused_anchor_cap, seq_bits=self._seq_bits(),
+                lut_bits=lut_bits, n_bisect=n_bisect, wtot_max=wtot_max,
+                a_max=a_max, g_max=g_max, out_cap=out_cap, q_max=q_max,
+                t_max=t_max, band=band, match=p.match, mismatch=p.mismatch,
+                gap_open=p.gap_open, gap_extend=p.gap_extend,
+                min_chain_score=p.min_chain_score,
+                max_per_read=p.max_alignments_per_read,
+                window_pad=p.window_pad)
+            return fut, (qlens_a, (wtot_max, a_max, g_max, out_cap))
 
     def _fused_submit(self, reads, groups, read_max, n_rows=None):
         """Host pack + host-seeded dispatch for one slice. Returns (device
         rows, ctx) with ctx = (qlens, None). n_rows pads the read matrix."""
-        p = self.params
-        idx = self.index
-        seq_off, seq_len = self._device_index_meta()
+        with span("map.submit"):
+            p = self.params
+            idx = self.index
+            seq_off, seq_len = self._device_index_meta()
 
-        cap = p.fused_anchor_cap
-        flat_q, flat_t, cnt, t_base = pack_groups_flat(groups, cap=cap)
-        ng = len(cnt)
-        gp = ((ng + 4095) // 4096) * 4096
-        gmeta = np.zeros((5, gp), np.int32)
-        gmeta[0, :ng] = groups.group_read
-        gmeta[1, :ng] = groups.group_seq
-        gmeta[2, :ng] = groups.group_strand
-        gmeta[3, :ng] = t_base
-        gmeta[4, :ng] = cnt
-        na = len(flat_q)
-        ap = 4096
-        while ap < na:
-            ap *= 2
-        fq = np.zeros(ap, flat_q.dtype)
-        ft = np.zeros(ap, flat_t.dtype)
-        fq[:na] = flat_q
-        ft[:na] = flat_t
-        packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max,
-                                                 n_rows=n_rows)
-        qlens_a = np.zeros(n_rows or len(reads), np.int32)
-        qlens_a[:len(reads)] = [len(r) for r in reads]
-        q_max, t_max, band = self._ext_shape(read_max)
-        up = self._upload
-        fut = _fused_map_dispatch(
-            up(packed2), up(exc_rid), up(exc_pos), up(qlens_a), up(fq),
-            up(ft), up(gmeta), self._device_refs(), seq_off, seq_len,
-            k=idx.k, a_bucket=cap, q_max=q_max, t_max=t_max, band=band,
-            match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
-            gap_extend=p.gap_extend, min_chain_score=p.min_chain_score,
-            max_per_read=p.max_alignments_per_read,
-            window_pad=p.window_pad)
-        return fut, (qlens_a, None)
+            cap = p.fused_anchor_cap
+            flat_q, flat_t, cnt, t_base = pack_groups_flat(groups, cap=cap)
+            ng = len(cnt)
+            gp = ((ng + 4095) // 4096) * 4096
+            gmeta = np.zeros((5, gp), np.int32)
+            gmeta[0, :ng] = groups.group_read
+            gmeta[1, :ng] = groups.group_seq
+            gmeta[2, :ng] = groups.group_strand
+            gmeta[3, :ng] = t_base
+            gmeta[4, :ng] = cnt
+            na = len(flat_q)
+            ap = 4096
+            while ap < na:
+                ap *= 2
+            fq = np.zeros(ap, flat_q.dtype)
+            ft = np.zeros(ap, flat_t.dtype)
+            fq[:na] = flat_q
+            ft[:na] = flat_t
+            packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max,
+                                                     n_rows=n_rows)
+            qlens_a = np.zeros(n_rows or len(reads), np.int32)
+            qlens_a[:len(reads)] = [len(r) for r in reads]
+            q_max, t_max, band = self._ext_shape(read_max)
+            up = self._upload
+            fut = _fused_map_dispatch(
+                up(packed2), up(exc_rid), up(exc_pos), up(qlens_a), up(fq),
+                up(ft), up(gmeta), self._device_refs(), seq_off, seq_len,
+                k=idx.k, a_bucket=cap, q_max=q_max, t_max=t_max, band=band,
+                match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
+                gap_extend=p.gap_extend, min_chain_score=p.min_chain_score,
+                max_per_read=p.max_alignments_per_read,
+                window_pad=p.window_pad)
+            return fut, (qlens_a, None)
 
     def _fused_collect_np(self, arr_u16, qlens_a, id_base, read_names):
-        return fused_collect_np(
-            arr_u16, qlens_a, id_base, read_names, self.params,
-            list(self.index.seq_names), self.index.seq_lengths, self.meta)
+        with span("map.collect"):
+            return fused_collect_np(
+                arr_u16, qlens_a, id_base, read_names, self.params,
+                list(self.index.seq_names), self.index.seq_lengths, self.meta)
+
+    def _seed(self, reads):
+        """Host seeding of a read list (`collect_anchors`)."""
+        p = self.params
+        with span("map.seed"):
+            return collect_anchors(self.index, reads, max_occ=p.max_occ,
+                                   min_group_anchors=p.min_group_anchors,
+                                   gap_break=p.gap_break)
+
+    def _fits_fused(self, read_max: int) -> bool:
+        """The fused gate's length condition, on a read matrix of read_max
+        columns."""
+        return read_max + self._band_for(read_max) < 2 ** 15
 
     def _fused_ok(self, read_max: int, n_reads: int) -> bool:
         """The fused gate: rid/seq_id ride uint16 columns and the per-read
         rank key is rid*2**15 + score in int32."""
         return (self.params.fused
-                and read_max + self._band_for(read_max) < 2 ** 15
+                and self._fits_fused(read_max)
                 and n_reads < 2 ** 16
                 and len(self.index.seq_names) < 2 ** 16
                 and self.index.seq_data.size < 2 ** 31 - 2 ** 16)
@@ -994,16 +1022,17 @@ class MinimizerAligner:
         and cigar_map is None, the PAF-level mode (minimap2 without -a).
         Consumers that need base-level CIGARs (SAM output, AMR consensus,
         variant candidates) map with emit_cigars=True."""
-        if not emit_cigars:
-            # before any worker thread: the lazy planes dict is not safe to
-            # fill from two threads
-            self._device_refs()
-            self._device_index_meta()
-        if slice_size and len(reads) > slice_size:
-            return self._map_reads_pipelined(reads, read_names, slice_size,
-                                             emit_cigars)
-        return self._map_reads_single(reads, read_names,
-                                      emit_cigars=emit_cigars)
+        with span("map.call"):
+            if not emit_cigars:
+                # before any worker thread: the lazy planes dict is not safe
+                # to fill from two threads
+                self._device_refs()
+                self._device_index_meta()
+            if slice_size and len(reads) > slice_size:
+                return self._map_reads_pipelined(reads, read_names,
+                                                 slice_size, emit_cigars)
+            return self._map_reads_single(reads, read_names,
+                                          emit_cigars=emit_cigars)
 
     def _map_reads_pipelined(self, reads, read_names, slice_size,
                              emit_cigars=True):
@@ -1011,14 +1040,15 @@ class MinimizerAligner:
         if not emit_cigars and self._fused_ok(read_max, slice_size):
             parts = self._map_slices_async(reads, slice_size, read_max)
         else:
-            slices = [(s, reads[s: s + slice_size])
-                      for s in range(0, len(reads), slice_size)]
+            # each slice runs in a copy of this thread's context, so that
+            # its spans are children of this call's
             with ThreadPoolExecutor(max_workers=2) as ex:
-                parts = list(ex.map(
-                    lambda sv: self._map_reads_single(
-                        sv[1], None, id_base=sv[0],
-                        emit_cigars=emit_cigars),
-                    slices))
+                futs = [ex.submit(contextvars.copy_context().run,
+                                  self._map_reads_single,
+                                  reads[s: s + slice_size], None, id_base=s,
+                                  emit_cigars=emit_cigars)
+                        for s in range(0, len(reads), slice_size)]
+                parts = [f.result() for f in futs]
         return self._concat_parts(parts, read_names, emit_cigars)
 
     def _map_slices_async(self, reads, slice_size, read_max):
@@ -1028,7 +1058,6 @@ class MinimizerAligner:
         the device and fetched in one transfer. A slice whose counts row
         shows a cap overflow defers its affected read-id suffix to trailing
         host-seeded waves (partial redo)."""
-        p = self.params
         use_dev = self._devseed_ok(slice_size)
         slices = [(s, reads[s: s + slice_size])
                   for s in range(0, len(reads), slice_size)]
@@ -1042,10 +1071,7 @@ class MinimizerAligner:
                     fut, ctx = self._fused_submit_devseed(sl, slice_size,
                                                           read_max)
                 else:
-                    groups = collect_anchors(
-                        self.index, sl, max_occ=p.max_occ,
-                        min_group_anchors=p.min_group_anchors,
-                        gap_break=p.gap_break)
+                    groups = self._seed(sl)
                     if groups.n_groups == 0:
                         continue
                     fut, ctx = self._fused_submit(sl, groups, read_max)
@@ -1071,10 +1097,7 @@ class MinimizerAligner:
         for w0 in range(0, len(overflowed), WAVE):
             subs = []
             for s, sl in overflowed[w0: w0 + WAVE]:
-                groups = collect_anchors(
-                    self.index, sl, max_occ=p.max_occ,
-                    min_group_anchors=p.min_group_anchors,
-                    gap_break=p.gap_break)
+                groups = self._seed(sl)
                 if groups.n_groups == 0:
                     continue
                 fut, ctx = self._fused_submit(sl, groups, read_max,
@@ -1095,6 +1118,11 @@ class MinimizerAligner:
                           read_names: list[str] | None = None,
                           id_base: int = 0,
                           emit_cigars: bool = True) -> AlignList:
+        with span("map.slice"):
+            count("reads", len(reads))
+            return self._map_slice(reads, read_names, id_base, emit_cigars)
+
+    def _map_slice(self, reads, read_names, id_base, emit_cigars):
         p = self.params
         idx = self.index
         n_seqs = len(idx.seq_names)
@@ -1105,258 +1133,282 @@ class MinimizerAligner:
         read_max = _bucket(max(len(r) for r in reads))
         if not emit_cigars and self._fused_ok(read_max, len(reads)):
             return self._finish_fused(reads, read_names, id_base, read_max)
+        count("host_path", 1)
+        count("long_reads", sum(not self._fits_fused(_bucket(len(r)))
+                                for r in reads))
 
         empty = AlignList.empty(idx.seq_names, self.meta.assembly_names,
                                 read_names or [])
-        groups = collect_anchors(idx, reads, max_occ=p.max_occ,
-                                 min_group_anchors=p.min_group_anchors,
-                                 gap_break=p.gap_break)
+        groups = self._seed(reads)
         if groups.n_groups == 0:
             return empty
 
-        # bucket the anchor dimension: the smallest power of two covering
-        # the largest group (capped); typical reads need 32-64, not 256
-        sizes = np.diff(groups.group_offsets)
-        a_bucket = 32
-        while a_bucket < min(int(sizes.max()), p.max_anchors_per_group):
-            a_bucket *= 2
-        qg, tg, cnt, t_base, _sel = pack_groups(groups, max_anchors=a_bucket)
+        with span("map.chain"):
+            # bucket the anchor dimension: the smallest power of two
+            # covering the largest group (capped); typical reads need 32-64
+            sizes = np.diff(groups.group_offsets)
+            a_bucket = 32
+            while a_bucket < min(int(sizes.max()), p.max_anchors_per_group):
+                a_bucket *= 2
+            qg, tg, cnt, t_base, _sel = pack_groups(groups,
+                                                    max_anchors=a_bucket)
 
-        # chain in fixed-size chunks; all chunk outputs are concatenated on
-        # the device and fetched in one transfer
-        ng = len(cnt)
-        CHUNK = 4096
-        up = self._upload
-        chunk_outs = []
-        for c0 in range(0, ng, CHUNK):
-            c1 = min(c0 + CHUNK, ng)
-            m = c1 - c0
-            qg_c = np.zeros((CHUNK, qg.shape[1]), qg.dtype)
-            tg_c = np.zeros((CHUNK, tg.shape[1]), tg.dtype)
-            cnt_c = np.zeros(CHUNK, np.int32)
-            qg_c[:m] = qg[c0:c1]
-            tg_c[:m] = tg[c0:c1]
-            cnt_c[:m] = cnt[c0:c1]
-            chunk_outs.append(chain_and_extents(up(qg_c), up(tg_c),
-                                                up(cnt_c)))
-        stacked = torch.cat(chunk_outs, dim=1).cpu().numpy()[:, :ng]
+            # chain in fixed-size chunks; all chunk outputs are concatenated
+            # on the device and fetched in one transfer
+            ng = len(cnt)
+            CHUNK = 4096
+            up = self._upload
+            chunk_outs = []
+            for c0 in range(0, ng, CHUNK):
+                c1 = min(c0 + CHUNK, ng)
+                m = c1 - c0
+                qg_c = np.zeros((CHUNK, qg.shape[1]), qg.dtype)
+                tg_c = np.zeros((CHUNK, tg.shape[1]), tg.dtype)
+                cnt_c = np.zeros(CHUNK, np.int32)
+                qg_c[:m] = qg[c0:c1]
+                tg_c[:m] = tg[c0:c1]
+                cnt_c[:m] = cnt[c0:c1]
+                chunk_outs.append(chain_and_extents(up(qg_c), up(tg_c),
+                                                    up(cnt_c)))
+        with span("map.fetch"):
+            stacked = torch.cat(chunk_outs, dim=1).cpu().numpy()[:, :ng]
         best = stacked[0].astype(np.int64)
         q_min, q_max_, t_min, t_max_ = stacked[1:5]
 
-        keep = best >= p.min_chain_score
-        g_ids = np.flatnonzero(keep)
-        if len(g_ids) == 0:
-            return empty
+        with span("map.windows"):
+            keep = best >= p.min_chain_score
+            g_ids = np.flatnonzero(keep)
+            if len(g_ids) == 0:
+                return empty
 
-        # top-K candidate groups per read by chain score
-        order = np.lexsort((-best[g_ids], groups.group_read[g_ids]))
-        g_sorted = g_ids[order]
-        rids = groups.group_read[g_sorted]
-        rank = np.zeros(len(g_sorted), np.int64)
-        same = np.flatnonzero(np.append(False, rids[1:] == rids[:-1]))
-        for s in same:  # cumulative rank within read runs
-            rank[s] = rank[s - 1] + 1
-        g_final = g_sorted[rank < p.max_alignments_per_read]
+            # top-K candidate groups per read by chain score
+            order = np.lexsort((-best[g_ids], groups.group_read[g_ids]))
+            g_sorted = g_ids[order]
+            rids = groups.group_read[g_sorted]
+            rank = np.zeros(len(g_sorted), np.int64)
+            same = np.flatnonzero(np.append(False, rids[1:] == rids[:-1]))
+            for s in same:  # cumulative rank within read runs
+                rank[s] = rank[s - 1] + 1
+            g_final = g_sorted[rank < p.max_alignments_per_read]
 
-        # extension windows from device-computed chain extents
-        recs = []
-        ext_qlens, ext_starts, ext_wlens = [], [], []
-        for g in g_final:
-            rid = int(groups.group_read[g])
-            seq_id = int(groups.group_seq[g])
-            strand = int(groups.group_strand[g])
-            qlen = len(reads[rid])
-            q_lo = int(q_min[g]) - (idx.k - 1)
-            q_hi = int(q_max_[g]) + 1
-            t_lo = int(t_min[g]) + int(t_base[g]) - (idx.k - 1)
-            t_hi = int(t_max_[g]) + int(t_base[g]) + 1
-            # extension problem: slice BOTH query and target around the
-            # chain so the alignment diagonal starts at ~(0, 0), as the
-            # diagonal-banded kernel requires; correct for partial matches
-            # (e.g. a long query containing a short gene mid-way).
-            # Diagonal back-shift for widened bands (see _fused_tail).
-            wband = p.band if p.band is not None else 0
-            wpad = p.window_pad
-            dshift = min(wband // 8, 64) if wband > 128 else 0
-            seq_off = int(idx.seq_offsets[seq_id])
-            seq_len = int(seq_lens[seq_id])
-            left = min(q_lo, t_lo) + wpad
-            right = min(qlen - q_hi, seq_len - t_hi) + wpad
-            qs = max(q_lo - left, 0)
-            qe = min(q_hi + right, qlen)
-            w_lo = max(t_lo - (q_lo - qs) - dshift, 0)
-            w_hi = min(t_hi + (qe - q_hi) + dshift, seq_len)
-            recs.append(dict(rid=rid, seq_id=seq_id, strand=strand,
-                             qlen=qlen, w_lo=w_lo, w_hi=w_hi, qs=qs, qe=qe,
-                             chain_score=int(best[g]),
-                             # un-padded chain extents (oriented q frame /
-                             # absolute t): the coordinates minimap2 uses
-                             # for primary/secondary marking (mm_set_parent
-                             # runs on chains, before base-level extension)
-                             cq_lo=max(q_lo, 0), cq_hi=min(q_hi, qlen),
-                             ct_lo=max(t_lo, 0), ct_hi=min(t_hi, seq_len)))
-            ext_qlens.append(qe - qs)
-            ext_starts.append(seq_off + w_lo)
-            ext_wlens.append(w_hi - w_lo)
+            # extension windows from device-computed chain extents
+            recs = []
+            ext_qlens, ext_starts, ext_wlens = [], [], []
+            for g in g_final:
+                rid = int(groups.group_read[g])
+                seq_id = int(groups.group_seq[g])
+                strand = int(groups.group_strand[g])
+                qlen = len(reads[rid])
+                q_lo = int(q_min[g]) - (idx.k - 1)
+                q_hi = int(q_max_[g]) + 1
+                t_lo = int(t_min[g]) + int(t_base[g]) - (idx.k - 1)
+                t_hi = int(t_max_[g]) + int(t_base[g]) + 1
+                # extension problem: slice BOTH query and target around the
+                # chain so the alignment diagonal starts at ~(0, 0), as the
+                # diagonal-banded kernel requires; correct for partial
+                # matches (e.g. a long query containing a short gene
+                # mid-way). Diagonal back-shift for widened bands (see
+                # _fused_tail).
+                wband = p.band if p.band is not None else 0
+                wpad = p.window_pad
+                dshift = min(wband // 8, 64) if wband > 128 else 0
+                seq_off = int(idx.seq_offsets[seq_id])
+                seq_len = int(seq_lens[seq_id])
+                left = min(q_lo, t_lo) + wpad
+                right = min(qlen - q_hi, seq_len - t_hi) + wpad
+                qs = max(q_lo - left, 0)
+                qe = min(q_hi + right, qlen)
+                w_lo = max(t_lo - (q_lo - qs) - dshift, 0)
+                w_hi = min(t_hi + (qe - q_hi) + dshift, seq_len)
+                recs.append(dict(
+                    rid=rid, seq_id=seq_id, strand=strand, qlen=qlen,
+                    w_lo=w_lo, w_hi=w_hi, qs=qs, qe=qe,
+                    chain_score=int(best[g]),
+                    # un-padded chain extents (oriented q frame / absolute
+                    # t): the coordinates minimap2 uses for primary /
+                    # secondary marking (mm_set_parent runs on chains,
+                    # before base-level extension)
+                    cq_lo=max(q_lo, 0), cq_hi=min(q_hi, qlen),
+                    ct_lo=max(t_lo, 0), ct_hi=min(t_hi, seq_len)))
+                ext_qlens.append(qe - qs)
+                ext_starts.append(seq_off + w_lo)
+                ext_wlens.append(w_hi - w_lo)
 
-        # batched banded extension on the device, window shapes bucketed to
-        # powers of two as in the reference
-        n_ext = len(recs)
-        q_max = _bucket(max(ext_qlens))
-        t_max = _bucket(max(max(ext_wlens), q_max))
-        band = self._band_for(q_max)
-        # the full-stats kernel (PAF mode) needs windows < 32k for its
-        # packed companions; beyond that, score on the device and trace
-        # back on the host
-        full_ok = (not emit_cigars) and q_max + band < 2 ** 15 \
-            and max(t_max, q_max) + band < 2 ** 15
-        sw_kw = dict(band=band, match=p.match, mismatch=p.mismatch,
-                     gap_open=p.gap_open, gap_extend=p.gap_extend)
+            # batched banded extension on the device, window shapes
+            # bucketed to powers of two as in the reference
+            n_ext = len(recs)
+            q_max = _bucket(max(ext_qlens))
+            t_max = _bucket(max(max(ext_wlens), q_max))
+            band = self._band_for(q_max)
+            # the full-stats kernel (PAF mode) needs windows < 32k for its
+            # packed companions; beyond that, score on the device and trace
+            # back on the host
+            full_ok = (not emit_cigars) and q_max + band < 2 ** 15 \
+                and max(t_max, q_max) + band < 2 ** 15
+            sw_kw = dict(band=band, match=p.match, mismatch=p.mismatch,
+                         gap_open=p.gap_open, gap_extend=p.gap_extend)
+            if not full_ok:
+                ext_reads = [
+                    (reads[r["rid"]] if r["strand"] == 0
+                     else revcomp(reads[r["rid"]]))[r["qs"]: r["qe"]]
+                    for r in recs]
+                ext_refs = [idx.seq_data[s: s + L]
+                            for s, L in zip(ext_starts, ext_wlens)]
 
         if full_ok:
-            # single extension dispatch: the packed read batch is uploaded
-            # once; query windows (with strand flip) and target windows are
-            # both gathered on the device
-            mp = ((n_ext + 1023) // 1024) * 1024
-            packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max)
-            meta_a = np.zeros((6, mp), np.int32)
-            meta_a[0, :n_ext] = [r["rid"] for r in recs]
-            meta_a[1, :n_ext] = [r["qs"] for r in recs]
-            meta_a[2, :n_ext] = ext_qlens
-            meta_a[3, :n_ext] = [r["strand"] for r in recs]
-            meta_a[4, :n_ext] = ext_starts
-            meta_a[5, :n_ext] = ext_wlens
-            qlens_a = np.array([len(r) for r in reads], np.int32)
-            full = _extend_full_dispatch(
-                up(packed2), up(exc_rid), up(exc_pos), up(qlens_a),
-                up(meta_a), self._device_refs(), q_max=q_max, t_max=t_max,
-                **sw_kw)[:n_ext].cpu().numpy().astype(np.int64)
+            with span("map.extend"):
+                # single extension dispatch: the packed read batch is
+                # uploaded once; query windows (with strand flip) and
+                # target windows are both gathered on the device, each
+                # padded to (mp, q_max) and (mp, t_max)
+                mp = ((n_ext + 1023) // 1024) * 1024
+                _count_windows(ext_qlens, ext_wlens, mp, q_max, t_max)
+                packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max)
+                meta_a = np.zeros((6, mp), np.int32)
+                meta_a[0, :n_ext] = [r["rid"] for r in recs]
+                meta_a[1, :n_ext] = [r["qs"] for r in recs]
+                meta_a[2, :n_ext] = ext_qlens
+                meta_a[3, :n_ext] = [r["strand"] for r in recs]
+                meta_a[4, :n_ext] = ext_starts
+                meta_a[5, :n_ext] = ext_wlens
+                qlens_a = np.array([len(r) for r in reads], np.int32)
+                full_dev = _extend_full_dispatch(
+                    up(packed2), up(exc_rid), up(exc_pos), up(qlens_a),
+                    up(meta_a), self._device_refs(), q_max=q_max,
+                    t_max=t_max, **sw_kw)
+            with span("map.fetch"):
+                full = full_dev[:n_ext].cpu().numpy().astype(np.int64)
             scores = full[:, 0]
         else:
-            ext_reads = [
-                (reads[r["rid"]] if r["strand"] == 0
-                 else revcomp(reads[r["rid"]]))[r["qs"]: r["qe"]]
-                for r in recs]
-            ext_refs = [idx.seq_data[s: s + L]
-                        for s, L in zip(ext_starts, ext_wlens)]
-            score_parts = []
-            for s0 in range(0, n_ext, p.extend_batch):
-                s1 = min(s0 + p.extend_batch, n_ext)
-                m = s1 - s0
-                ra = np.full((m, q_max), 4, np.int8)
-                ta = np.full((m, t_max), 5, np.int8)
-                rl = np.zeros(m, np.int32)
-                tl = np.zeros(m, np.int32)
-                for i in range(m):
-                    rr, tt = ext_reads[s0 + i], ext_refs[s0 + i]
-                    ra[i, : len(rr)] = rr
-                    ta[i, : len(tt)] = tt
-                    rl[i] = len(rr)
-                    tl[i] = len(tt)
-                sc, _, _ = banded_sw_scores(up(ra), up(rl), up(ta), up(tl),
-                                            **sw_kw)
-                score_parts.append(sc)
-            # one device->host transfer for all extension scores
-            scores = torch.cat(score_parts).cpu().numpy().astype(np.int64)
+            with span("map.extend"):
+                score_parts = []
+                for s0 in range(0, n_ext, p.extend_batch):
+                    s1 = min(s0 + p.extend_batch, n_ext)
+                    m = s1 - s0
+                    ra = np.full((m, q_max), 4, np.int8)
+                    ta = np.full((m, t_max), 5, np.int8)
+                    rl = np.zeros(m, np.int32)
+                    tl = np.zeros(m, np.int32)
+                    for i in range(m):
+                        rr, tt = ext_reads[s0 + i], ext_refs[s0 + i]
+                        ra[i, : len(rr)] = rr
+                        ta[i, : len(tt)] = tt
+                        rl[i] = len(rr)
+                        tl[i] = len(tt)
+                    sc, _, _ = banded_sw_scores(up(ra), up(rl), up(ta),
+                                                up(tl), **sw_kw)
+                    score_parts.append(sc)
+                _count_windows(ext_qlens, ext_wlens, n_ext, q_max, t_max)
+            with span("map.fetch"):
+                # one device->host transfer for all extension scores
+                scores = torch.cat(score_parts).cpu().numpy().astype(np.int64)
 
-        # minimap2-style multi-locus selection (-N/-p semantics) on the
-        # un-padded chain extents + device extension scores; exact emit
-        # (begin/end/CIGAR) then runs only on the kept set
-        ok = np.flatnonzero(scores > p.min_alignment_score)
-        if len(ok) == 0:
-            return empty
-        rid_c = np.array([recs[i]["rid"] for i in ok], np.int64)
-        seq_c = np.array([recs[i]["seq_id"] for i in ok], np.int64)
-        strand_c = np.array([recs[i]["strand"] for i in ok], np.int64)
-        qlen_c = np.array([recs[i]["qlen"] for i in ok], np.int64)
-        cq_lo = np.array([recs[i]["cq_lo"] for i in ok], np.int64)
-        cq_hi = np.array([recs[i]["cq_hi"] for i in ok], np.int64)
-        qf_c = np.where(strand_c == 0, cq_lo, qlen_c - cq_hi)
-        qt_c = np.where(strand_c == 0, cq_hi, qlen_c - cq_lo)
-        tf_c = np.array([recs[i]["ct_lo"] for i in ok], np.int64)
-        tt_c = np.array([recs[i]["ct_hi"] for i in ok], np.int64)
-        sel, mapq_sel, _is_sec = select_alignments(
-            rid_c, scores[ok], qf_c, qt_c, seq_c, strand_c, tf_c, tt_c,
-            secondary_ratio=p.secondary_ratio, mask_level=p.mask_level,
-            max_secondary=p.max_alignments_per_read)
-        emit_idx = [int(i) for i in ok[sel]]
+        with span("map.select"):
+            # minimap2-style multi-locus selection (-N/-p semantics) on the
+            # un-padded chain extents + device extension scores; exact emit
+            # (begin/end/CIGAR) then runs only on the kept set
+            ok = np.flatnonzero(scores > p.min_alignment_score)
+            if len(ok) == 0:
+                return empty
+            rid_c = np.array([recs[i]["rid"] for i in ok], np.int64)
+            seq_c = np.array([recs[i]["seq_id"] for i in ok], np.int64)
+            strand_c = np.array([recs[i]["strand"] for i in ok], np.int64)
+            qlen_c = np.array([recs[i]["qlen"] for i in ok], np.int64)
+            cq_lo = np.array([recs[i]["cq_lo"] for i in ok], np.int64)
+            cq_hi = np.array([recs[i]["cq_hi"] for i in ok], np.int64)
+            qf_c = np.where(strand_c == 0, cq_lo, qlen_c - cq_hi)
+            qt_c = np.where(strand_c == 0, cq_hi, qlen_c - cq_lo)
+            tf_c = np.array([recs[i]["ct_lo"] for i in ok], np.int64)
+            tt_c = np.array([recs[i]["ct_hi"] for i in ok], np.int64)
+            sel, mapq_sel, _is_sec = select_alignments(
+                rid_c, scores[ok], qf_c, qt_c, seq_c, strand_c, tf_c, tt_c,
+                secondary_ratio=p.secondary_ratio, mask_level=p.mask_level,
+                max_secondary=p.max_alignments_per_read)
+            emit_idx = [int(i) for i in ok[sel]]
 
-        if full_ok:
-            # PAF mode: every field comes from the device kernel's carried
-            # path statistics; no host DP, no CIGARs
-            stats = [(int(full[i, 5]), int(full[i, 1]), int(full[i, 6]),
-                      int(full[i, 2]), int(full[i, 3]), int(full[i, 4]),
-                      int(full[i, 0])) for i in emit_idx]
-        else:
-            # exact emit (begin/end/CIGAR/match/NM) via the native threaded
-            # banded aligner, O(band*len) per kept alignment: narrow band
-            # first (2x cheaper); any pair whose score misses the device
-            # banded score is redone at the full band, so the cross-check
-            # guarantees exactness and the common case the speed
-            emit_band = max(64, band // 2)
-            emit_alns = banded_align_batch(
-                [ext_reads[i] for i in emit_idx],
-                [ext_refs[i] for i in emit_idx],
-                band=emit_band, match=p.match, mismatch=p.mismatch,
-                gap_open=p.gap_open, gap_extend=p.gap_extend)
-            redo = [r for r, i in enumerate(emit_idx)
-                    if emit_alns[r].score != scores[i]]
-            if redo:
-                fixed = banded_align_batch(
-                    [ext_reads[emit_idx[r]] for r in redo],
-                    [ext_refs[emit_idx[r]] for r in redo],
-                    band=band, match=p.match, mismatch=p.mismatch,
+        if not full_ok:
+            with span("map.traceback"):
+                # exact emit (begin/end/CIGAR/match/NM) via the native
+                # threaded banded aligner, O(band*len) per kept alignment:
+                # narrow band first (2x cheaper); any pair whose score
+                # misses the device banded score is redone at the full
+                # band, so the cross-check guarantees exactness and the
+                # common case the speed
+                emit_band = max(64, band // 2)
+                emit_alns = banded_align_batch(
+                    [ext_reads[i] for i in emit_idx],
+                    [ext_refs[i] for i in emit_idx],
+                    band=emit_band, match=p.match, mismatch=p.mismatch,
                     gap_open=p.gap_open, gap_extend=p.gap_extend)
-                for r, a in zip(redo, fixed):
-                    emit_alns[r] = a
-            stats = [(a.read_begin, a.read_end, a.ref_begin, a.ref_end,
-                      a.n_match, a.edit_dist, int(a.score))
-                     for a in emit_alns]
+                redo = [r for r, i in enumerate(emit_idx)
+                        if emit_alns[r].score != scores[i]]
+                if redo:
+                    fixed = banded_align_batch(
+                        [ext_reads[emit_idx[r]] for r in redo],
+                        [ext_refs[emit_idx[r]] for r in redo],
+                        band=band, match=p.match, mismatch=p.mismatch,
+                        gap_open=p.gap_open, gap_extend=p.gap_extend)
+                    for r, a in zip(redo, fixed):
+                        emit_alns[r] = a
+                count("traceback_pairs", len(emit_idx))
+                count("traceback_redo", len(redo))
 
-        out = np.zeros(len(emit_idx), ALIGN_DTYPE)
-        cigar_map: dict | None = {} if emit_cigars else None
-        best_for_pair: dict[tuple, int] = {}  # (rid, sid) -> best score seen
-        for row, (i, st) in enumerate(zip(emit_idx, stats)):
-            rb, re_, tb, te, n_match, edit_dist, score = st
-            r = recs[i]
-            rid = r["rid"]
-            seq_id = r["seq_id"]
-            qlen = r["qlen"]
-            ob = r["qs"] + rb                 # oriented-frame begin/end
-            oe = r["qs"] + re_
-            if r["strand"] == 0:
-                read_from, read_to = ob, oe + 1
-            else:  # flip back to original read coordinates
-                read_from = qlen - (oe + 1)
-                read_to = qlen - ob
-            seq_from = r["w_lo"] + tb
-            seq_to = r["w_lo"] + te + 1
-            out[row] = (
-                rid + id_base, qlen, read_from, read_to, r["strand"], seq_id,
-                int(seq_lens[seq_id]), seq_from, seq_to, n_match,
-                int(mapq_sel[row]), edit_dist, score,
-                int(self.meta.assembly_idx[seq_id]),
-                int(self.meta.tax_id[seq_id]),
-                int(self.meta.species_tax_id[seq_id]),
-                int(self.meta.genus_tax_id[seq_id]),
-                0.0,
-            )
-            if cigar_map is not None:
-                entry = (emit_alns[row].cigar, r["qs"] + rb, r["strand"])
-                # every locus is addressable by (rid, sid, seq_from); the
-                # best locus per (rid, sid) also owns the 2-key used by
-                # per-(read, seq) consumers (variant/, amr/consensus)
-                cigar_map[(rid + id_base, seq_id, seq_from)] = entry
-                pk = (rid + id_base, seq_id)
-                if score > best_for_pair.get(pk, -1):
-                    best_for_pair[pk] = score
-                    cigar_map[pk] = entry
-        out["alignment_score_tiebreaker"] = _stable_uniform(
-            p.tiebreaker_seed, out["read_id"],
-            out["sequence_id"].astype(np.int64) * np.int64(n_seqs + 1)
-            + out["sequence_from"])
-        order = np.lexsort((out["sequence_from"], out["sequence_id"],
-                            out["read_id"]))
-        return AlignList(out[order], list(idx.seq_names),
-                         list(self.meta.assembly_names), read_names or [],
-                         cigar_map)
+        with span("map.emit"):
+            if full_ok:
+                # PAF mode: every field comes from the device kernel's
+                # carried path statistics; no host DP, no CIGARs
+                stats = [(int(full[i, 5]), int(full[i, 1]), int(full[i, 6]),
+                          int(full[i, 2]), int(full[i, 3]), int(full[i, 4]),
+                          int(full[i, 0])) for i in emit_idx]
+            else:
+                stats = [(a.read_begin, a.read_end, a.ref_begin, a.ref_end,
+                          a.n_match, a.edit_dist, int(a.score))
+                         for a in emit_alns]
+
+            out = np.zeros(len(emit_idx), ALIGN_DTYPE)
+            cigar_map: dict | None = {} if emit_cigars else None
+            best_for_pair: dict[tuple, int] = {}  # (rid, sid) -> best score
+            for row, (i, st) in enumerate(zip(emit_idx, stats)):
+                rb, re_, tb, te, n_match, edit_dist, score = st
+                r = recs[i]
+                rid = r["rid"]
+                seq_id = r["seq_id"]
+                qlen = r["qlen"]
+                ob = r["qs"] + rb                 # oriented-frame begin/end
+                oe = r["qs"] + re_
+                if r["strand"] == 0:
+                    read_from, read_to = ob, oe + 1
+                else:  # flip back to original read coordinates
+                    read_from = qlen - (oe + 1)
+                    read_to = qlen - ob
+                seq_from = r["w_lo"] + tb
+                seq_to = r["w_lo"] + te + 1
+                out[row] = (
+                    rid + id_base, qlen, read_from, read_to, r["strand"],
+                    seq_id, int(seq_lens[seq_id]), seq_from, seq_to, n_match,
+                    int(mapq_sel[row]), edit_dist, score,
+                    int(self.meta.assembly_idx[seq_id]),
+                    int(self.meta.tax_id[seq_id]),
+                    int(self.meta.species_tax_id[seq_id]),
+                    int(self.meta.genus_tax_id[seq_id]),
+                    0.0,
+                )
+                if cigar_map is not None:
+                    entry = (emit_alns[row].cigar, r["qs"] + rb, r["strand"])
+                    # every locus is addressable by (rid, sid, seq_from);
+                    # the best locus per (rid, sid) also owns the 2-key used
+                    # by per-(read, seq) consumers (variant/, amr/consensus)
+                    cigar_map[(rid + id_base, seq_id, seq_from)] = entry
+                    pk = (rid + id_base, seq_id)
+                    if score > best_for_pair.get(pk, -1):
+                        best_for_pair[pk] = score
+                        cigar_map[pk] = entry
+            out["alignment_score_tiebreaker"] = _stable_uniform(
+                p.tiebreaker_seed, out["read_id"],
+                out["sequence_id"].astype(np.int64) * np.int64(n_seqs + 1)
+                + out["sequence_from"])
+            order = np.lexsort((out["sequence_from"], out["sequence_id"],
+                                out["read_id"]))
+            return AlignList(out[order], list(idx.seq_names),
+                             list(self.meta.assembly_names), read_names or [],
+                             cigar_map)

@@ -16,7 +16,9 @@ The port's own copy of megapath_nano_tpu/cli/main.py, with the same flags
 and dests except one: `--backend` becomes `--device {cuda,cpu}` (default
 cuda; every map of the run goes to that device, the index shards of
 `--index_shards` and the AMR scans of `--amr_db` included, and the default
-raises without a CUDA device).
+raises without a CUDA device). One flag is the port's own: `--span_trace
+PATH` writes the run's spans (`utils/log.py`, root `cli.main`) as
+Chrome-trace JSON. The `.timing` table has one step more, `write_reports`.
 """
 
 from __future__ import annotations
@@ -217,6 +219,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--index_shards", type=int, default=1,
                    help="partition the reference index into N shards "
                         "(multi-chip/host layout; 1 = monolithic)")
+    p.add_argument("--span_trace", default=None, metavar="PATH",
+                   help="write the run's spans and counts as Chrome-trace "
+                        "JSON (one track a thread, epoch clock)")
     return p
 
 
@@ -325,7 +330,19 @@ def output_gates_from_args(args) -> set:
 
 
 def main(argv=None) -> int:
+    from megapath_nano_tpu_torch.utils.log import (RECORD, span,
+                                                   write_chrome_trace)
+
     args = build_parser().parse_args(argv)
+    with span("cli.main") as root:
+        rc = run(args)
+    if args.span_trace:
+        write_chrome_trace(args.span_trace, RECORD.request(root.id))
+    return rc
+
+
+def run(args) -> int:
+    """One run of the CLI on parsed arguments; the exit code."""
     if args.taxon_module_only:
         args.amr = False
     if not args.all_taxon_module_steps:
@@ -476,13 +493,14 @@ def main(argv=None) -> int:
     result = profiler.profile(reads, names)
 
     all_lengths = np.array([len(r) for r in reads], np.int64)
-    paths = profiler.write_reports(
-        result, args.output_folder, prefix,
-        read_lengths=all_lengths,
-        read_quals=None,
-        reads=reads,
-        archive_format=args.archive_format,
-        enabled=output_gates_from_args(args))
+    with log.step("write_reports"):
+        paths = profiler.write_reports(
+            result, args.output_folder, prefix,
+            read_lengths=all_lengths,
+            read_quals=None,
+            reads=reads,
+            archive_format=args.archive_format,
+            enabled=output_gates_from_args(args))
 
     if args.amr and args.amr_db and len(result.best):
         from megapath_nano_tpu_torch.amr.db import AMRGeneDB

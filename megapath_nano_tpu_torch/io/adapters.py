@@ -29,6 +29,7 @@ import numpy as np
 
 from megapath_nano_tpu_torch.native.ssw import build_score_matrix, ssw_align
 from megapath_nano_tpu_torch.utils.dna import encode, revcomp
+from megapath_nano_tpu_torch.utils.log import count, span
 
 
 @dataclass(frozen=True)
@@ -74,8 +75,12 @@ def _identity(aln, adapter_len: int) -> float:
     return 100.0 * aln.score1 / (3.0 * adapter_len)
 
 
+def _scanned(window: np.ndarray, adapter: np.ndarray) -> bool:
+    return len(window) >= 5 and len(adapter) >= 5
+
+
 def _best_hit(window: np.ndarray, adapter: np.ndarray, mat) -> tuple:
-    if len(window) < 5 or len(adapter) < 5:
+    if not _scanned(window, adapter):
         return 0.0, None
     aln = ssw_align(adapter, window, score_matrix=mat, gap_open=5,
                     gap_extend=2, want_cigar=True)
@@ -96,68 +101,85 @@ def trim_adapters(
     check_middle: bool = True,
 ) -> TrimResult:
     """Trim/split a read batch. Returns a TrimResult whose reads/names are
-    the surviving (sub)reads in input order."""
-    names = names or [f"read{i}" for i in range(len(reads))]
-    mat = build_score_matrix(3, 6)
-    starts, ends, middles = [], [], []
-    for a in adapters:
-        if a.start_seq:
-            s = encode(a.start_seq)
-            starts.append((a.name, s))
-            middles.append((a.name, s))
-            middles.append((a.name + "_rc", revcomp(s)))
-        if a.end_seq:
-            e = encode(a.end_seq)
-            ends.append((a.name, e))
-            middles.append((a.name + "_end", e))
+    the surviving (sub)reads in input order. Runs as the span `trim`, with
+    the counts `reads`, `scans` (SSW scans), `scan_cells` (adapter length
+    x window length, summed over scans), `split` and `dropped`."""
+    with span("trim"):
+        names = names or [f"read{i}" for i in range(len(reads))]
+        mat = build_score_matrix(3, 6)
+        starts, ends, middles = [], [], []
+        for a in adapters:
+            if a.start_seq:
+                s = encode(a.start_seq)
+                starts.append((a.name, s))
+                middles.append((a.name, s))
+                middles.append((a.name + "_rc", revcomp(s)))
+            if a.end_seq:
+                e = encode(a.end_seq)
+                ends.append((a.name, e))
+                middles.append((a.name + "_end", e))
 
-    res = TrimResult([], [], None)
-    src = []
-    for ri, read in enumerate(reads):
-        r = np.asarray(read, np.int8)
-        # start-of-read adapters
-        for name, a in starts:
-            ident, aln = _best_hit(r[:end_size], a, mat)
-            if ident >= end_threshold:
-                cut = aln.ref_end + 1 + extra_end_trim
-                r = r[cut:]
-                res.n_start_trimmed += 1
-                res.events.append((names[ri], "start", name))
-                break
-        # end-of-read adapters
-        for name, a in ends:
-            if len(r) == 0:
-                break
-            w0 = max(len(r) - end_size, 0)
-            ident, aln = _best_hit(r[w0:], a, mat)
-            if ident >= end_threshold:
-                cut = w0 + aln.ref_begin - extra_end_trim
-                r = r[: max(cut, 0)]
-                res.n_end_trimmed += 1
-                res.events.append((names[ri], "end", name))
-                break
-        # middle adapters → split
-        parts = [(r, names[ri])]
-        if check_middle and len(r) > 2 * min_split_size:
-            for name, a in middles:
-                ident, aln = _best_hit(r, a, mat)
-                if ident >= middle_threshold:
-                    left = r[: max(aln.ref_begin - extra_middle_trim, 0)]
-                    right = r[aln.ref_end + 1 + extra_middle_trim:]
-                    parts = [(left, names[ri] + "_1"),
-                             (right, names[ri] + "_2")]
-                    res.n_split += 1
-                    res.events.append((names[ri], "middle", name))
+        res = TrimResult([], [], None)
+        src = []
+        scans = cells = 0
+
+        def hit(window, a):
+            nonlocal scans, cells
+            if _scanned(window, a):
+                scans += 1
+                cells += len(window) * len(a)
+            return _best_hit(window, a, mat)
+
+        for ri, read in enumerate(reads):
+            r = np.asarray(read, np.int8)
+            # start-of-read adapters
+            for name, a in starts:
+                ident, aln = hit(r[:end_size], a)
+                if ident >= end_threshold:
+                    cut = aln.ref_end + 1 + extra_end_trim
+                    r = r[cut:]
+                    res.n_start_trimmed += 1
+                    res.events.append((names[ri], "start", name))
                     break
-        for part, pname in parts:
-            if len(parts) > 1 and len(part) < min_split_size:
-                res.n_dropped += 1
-                continue
-            if len(part) == 0:
-                res.n_dropped += 1
-                continue
-            res.reads.append(part)
-            res.names.append(pname)
-            src.append(ri)
-    res.source = np.array(src, np.int64)
-    return res
+            # end-of-read adapters
+            for name, a in ends:
+                if len(r) == 0:
+                    break
+                w0 = max(len(r) - end_size, 0)
+                ident, aln = hit(r[w0:], a)
+                if ident >= end_threshold:
+                    cut = w0 + aln.ref_begin - extra_end_trim
+                    r = r[: max(cut, 0)]
+                    res.n_end_trimmed += 1
+                    res.events.append((names[ri], "end", name))
+                    break
+            # middle adapters → split
+            parts = [(r, names[ri])]
+            if check_middle and len(r) > 2 * min_split_size:
+                for name, a in middles:
+                    ident, aln = hit(r, a)
+                    if ident >= middle_threshold:
+                        left = r[: max(aln.ref_begin - extra_middle_trim, 0)]
+                        right = r[aln.ref_end + 1 + extra_middle_trim:]
+                        parts = [(left, names[ri] + "_1"),
+                                 (right, names[ri] + "_2")]
+                        res.n_split += 1
+                        res.events.append((names[ri], "middle", name))
+                        break
+            for part, pname in parts:
+                if len(parts) > 1 and len(part) < min_split_size:
+                    res.n_dropped += 1
+                    continue
+                if len(part) == 0:
+                    res.n_dropped += 1
+                    continue
+                res.reads.append(part)
+                res.names.append(pname)
+                src.append(ri)
+        res.source = np.array(src, np.int64)
+        count("reads", len(reads))
+        count("scans", scans)
+        count("scan_cells", cells)
+        count("split", res.n_split)
+        count("dropped", res.n_dropped)
+        return res

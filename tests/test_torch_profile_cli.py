@@ -6,7 +6,7 @@ build_db from FASTA and a metadata table), without `--amr_db`. Each run
 writes the same files, byte-equal (archives member by member; `.timing`
 holds wall times and is only required to exist). The port's parser keeps
 every flag and dest of the original but `--backend`, which becomes
-`--device`. (`--amr_db` and `--index_shards`: tests/test_torch_amr_cli.py
+`--device`, and adds `--span_trace`. (`--amr_db` and `--index_shards`: tests/test_torch_amr_cli.py
 and tests/test_torch_sharded.py.)"""
 
 import numpy as np
@@ -126,10 +126,11 @@ def _actions(parser):
 def test_parser_keeps_every_dest_but_backend():
     j, t = _actions(jcli.build_parser()), _actions(tcli.build_parser())
     assert set(j) - set(t) == {"backend"}
-    assert set(t) - set(j) == {"device"}
+    assert set(t) - set(j) == {"device", "span_trace"}
     for dest in set(j) - {"backend"}:
         assert j[dest] == t[dest], dest
     assert t["device"][:3] == (["--device"], "cuda", ["cuda", "cpu"])
+    assert t["span_trace"][:2] == (["--span_trace"], None)
 
 
 def test_options_from_args_match():
