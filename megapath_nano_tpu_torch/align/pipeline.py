@@ -662,6 +662,11 @@ def _bucket(x, lo=256):
     return b
 
 
+def _round256(x):
+    """x rounded up to a multiple of 256, at least 256."""
+    return max(-(-x // 256), 1) * 256
+
+
 def require_device(device, owner: str) -> None:
     """Raise if `device` names a CUDA device and none is available: an
     entry point never falls back to the CPU on its own."""
@@ -1281,27 +1286,42 @@ class MinimizerAligner:
             scores = full[:, 0]
         else:
             with span("map.extend"):
+                # a launch lasts as long as its longest window (a warp a
+                # pair, all resident at once): the windows go out longest
+                # first, in launches of extend_batch pairs, each padded to
+                # its own longest query and ref (256 multiples); the band
+                # stays the slice's
+                order = np.argsort(-np.asarray(ext_qlens), kind="stable")
                 score_parts = []
                 for s0 in range(0, n_ext, p.extend_batch):
-                    s1 = min(s0 + p.extend_batch, n_ext)
-                    m = s1 - s0
-                    ra = np.full((m, q_max), 4, np.int8)
-                    ta = np.full((m, t_max), 5, np.int8)
+                    part = order[s0: s0 + p.extend_batch]
+                    m = len(part)
+                    q_top = ext_qlens[part[0]]
+                    w_top = max(ext_wlens[i] for i in part)
+                    q_l = _round256(q_top)
+                    t_l = max(_round256(w_top), q_l)
+                    ra = np.full((m, q_l), 4, np.int8)
+                    ta = np.full((m, t_l), 5, np.int8)
                     rl = np.zeros(m, np.int32)
                     tl = np.zeros(m, np.int32)
-                    for i in range(m):
-                        rr, tt = ext_reads[s0 + i], ext_refs[s0 + i]
-                        ra[i, : len(rr)] = rr
-                        ta[i, : len(tt)] = tt
-                        rl[i] = len(rr)
-                        tl[i] = len(tt)
+                    for row, i in enumerate(part):
+                        rr, tt = ext_reads[i], ext_refs[i]
+                        ra[row, : len(rr)] = rr
+                        ta[row, : len(tt)] = tt
+                        rl[row] = len(rr)
+                        tl[row] = len(tt)
                     sc, _, _ = banded_sw_scores(up(ra), up(rl), up(ta),
                                                 up(tl), **sw_kw)
                     score_parts.append(sc)
-                _count_windows(ext_qlens, ext_wlens, n_ext, q_max, t_max)
+                    _count_windows([ext_qlens[i] for i in part],
+                                   [ext_wlens[i] for i in part], m, q_l, t_l)
+                    count("ext_rows_launched", m * q_top)
+                count("ext_rows", sum(ext_qlens))
             with span("map.fetch"):
-                # one device->host transfer for all extension scores
-                scores = torch.cat(score_parts).cpu().numpy().astype(np.int64)
+                # one device->host transfer for all extension scores, put
+                # back in window order
+                scores = np.empty(n_ext, np.int64)
+                scores[order] = torch.cat(score_parts).cpu().numpy()
 
         with span("map.select"):
             # minimap2-style multi-locus selection (-N/-p semantics) on the

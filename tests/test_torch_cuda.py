@@ -316,6 +316,57 @@ def test_chain_wrapper_two_threads_one_table(cuda):
         assert torch.equal(got, ref)
 
 
+def mixed_lengths_world():
+    """Reads of 300 b to 6 kb (log-uniform) on three 20 kb genomes, one a
+    95% copy of another, so most reads get two windows: mapped with
+    `extend_batch` 8, the windows span several score-only launches that
+    sorting by length reorders. The port's own modules only."""
+    from megapath_nano_tpu_torch.utils.dna import (mutate, random_sequence,
+                                                   revcomp)
+
+    rng = np.random.default_rng(29)
+    g0, g1 = random_sequence(rng, 20000), random_sequence(rng, 20000)
+    genomes = [g0, g1, mutate(rng, g0, 0.03, 0.01, 0.01)]
+    lens = np.exp(rng.uniform(np.log(300), np.log(6000), 24)).astype(int)
+    reads = []
+    for n in lens:
+        g = genomes[int(rng.integers(0, 2))]
+        s = int(rng.integers(0, len(g) - n))
+        read = mutate(rng, g[s: s + n], 0.03, 0.015, 0.015)
+        reads.append(revcomp(read) if rng.integers(0, 2) else read)
+    return genomes, reads
+
+
+def test_map_mixed_lengths_card_matches_cpu(cuda):
+    """CIGAR-mode map_reads of the mixed-length world on the card and on
+    the CPU (plain versions): equal in all 18 fields and cigar_map, and
+    the card launches the score-only kernel once for every extend_batch
+    windows."""
+    from megapath_nano_tpu_torch.align.pipeline import (AlignParams,
+                                                        MinimizerAligner)
+    from megapath_nano_tpu_torch.index.minimizer import MinimizerIndex
+    from megapath_nano_tpu_torch.utils import log
+
+    genomes, reads = mixed_lengths_world()
+    index = MinimizerIndex.build(genomes, ["g0", "g1", "g2"])
+    out = {}
+    for device in ("cpu", "cuda"):
+        before = sw.banded_sw_scores.launches
+        al = MinimizerAligner(index, params=AlignParams(extend_batch=8),
+                              device=device)
+        res = al.map_reads(reads)
+        root = [s for s in log.RECORD.spans()
+                if s.name == "map.call" and s.parent is None][-1]
+        windows = sum(s.counts.get("windows", 0)
+                      for s in log.RECORD.request(root.id))
+        out[device] = (res, sw.banded_sw_scores.launches - before, windows)
+    (cpu, none, w_cpu), (gpu, launched, w_gpu) = out["cpu"], out["cuda"]
+    assert none == 0 and w_cpu == w_gpu >= 30
+    assert launched == -(-w_gpu // 8)
+    assert len(gpu) > 0 and np.array_equal(gpu.data, cpu.data)
+    assert gpu.cigar_map == cpu.cigar_map
+
+
 def _profile_world():
     """A small world for the taxon profile (the port's own modules only):
     a dominant assembly sharing a segment with a low one of its genus, a

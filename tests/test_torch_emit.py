@@ -17,6 +17,7 @@ from megapath_nano_tpu.utils.dna import mutate, random_sequence, revcomp
 from megapath_nano_tpu_torch.align import pipeline as tp
 from megapath_nano_tpu_torch.kernels.sw import banded_sw_scores
 from megapath_nano_tpu_torch.state import index_from_numpy
+from test_torch_cuda import mixed_lengths_world
 
 
 @pytest.fixture(autouse=True)
@@ -92,6 +93,9 @@ CASES = {
     "small_extend_batch": (
         lambda: _simulated(17, 2, 12000, 24, 600, 0.06),
         {"extend_batch": 7, "max_anchors_per_group": 32}, {}),
+    # windows of 300 b to 3.4 kb in five launches, longest first
+    "mixed_lengths_sorted_launches": (
+        mixed_lengths_world, {"extend_batch": 8}, {}),
     "min_alignment_score_drops_all": (
         lambda: _simulated(19, 2, 8000, 8, 400, 0.05),
         {"min_alignment_score": 10 ** 6}, {}),

@@ -19,6 +19,8 @@ from megapath_nano_tpu_torch.align import pipeline as tp
 from megapath_nano_tpu_torch.align.device_seed import NO_RID
 from megapath_nano_tpu_torch.kernels.sw import banded_sw_full
 from megapath_nano_tpu_torch.state import index_from_numpy
+from megapath_nano_tpu_torch.utils import log
+from test_torch_cuda import mixed_lengths_world
 
 
 @pytest.fixture(autouse=True)
@@ -156,3 +158,55 @@ def test_fused_row_matrices_bit_equal():
     ft, _ = tal._fused_submit(reads[:40], groups, read_max, n_rows=256)
     np.testing.assert_array_equal(tp._to_host_u16(ft), np.asarray(fj))
     assert banded_sw_full.launches == before       # CPU: plain versions
+
+
+def _round256(x):
+    return -(-x // 256) * 256
+
+
+def test_extend_launches_longest_first(monkeypatch):
+    """The host path's score-only launches (CIGAR mode), seen through a
+    wrapper of `banded_sw_scores` as the benchmark's shape recorder sees
+    them: the windows go out longest first in launches of `extend_batch`
+    pairs, each padded to its own longest query and ref rounded up to 256,
+    all at the slice's band; `map.extend` counts the windows' rows and
+    the rows the launches hold."""
+    genomes, reads = mixed_lengths_world()
+    index = tp.MinimizerIndex.build(genomes, ["g0", "g1", "g2"])
+    tal = tp.MinimizerAligner(index, params=tp.AlignParams(extend_batch=8),
+                              device="cpu")
+    calls = []
+    orig = tp.banded_sw_scores
+
+    def shapes(reads, read_lens, refs, ref_lens, **kw):
+        calls.append((reads.shape, refs.shape, read_lens.tolist(),
+                      ref_lens.tolist(), kw["band"]))
+        return orig(reads, read_lens, refs, ref_lens, **kw)
+    monkeypatch.setattr(tp, "banded_sw_scores", shapes)
+    res = tal.map_reads(reads)
+    assert len(res) >= len(reads) - 1
+
+    qlens = [q for c in calls for q in c[2]]
+    assert len(calls) == -(-len(qlens) // 8) >= 4
+    assert [len(c[2]) for c in calls[:-1]] == [8] * (len(calls) - 1)
+    assert qlens == sorted(qlens, reverse=True)
+    # the world's longest windows, 3444 and 2026 b, open the first two
+    assert [c[0][1] for c in calls[:2]] == [3584, 2048]
+    for qs, ts, ql, tl, band in calls:
+        assert qs == (len(ql), _round256(max(ql)))
+        assert ts == (len(ql), max(_round256(max(tl)), qs[1]))
+        # the slice's band: its longest window bucketed (3444 -> 4096)
+        assert band == tal._band_for(tp._bucket(qlens[0])) == 256
+
+    root = [s for s in log.RECORD.spans()
+            if s.name == "map.call" and s.parent is None][-1]
+    ext = [s for s in log.RECORD.request(root.id) if s.name == "map.extend"]
+    assert len(ext) == 1
+    counts = ext[0].counts
+    assert counts["ext_rows"] == sum(qlens)
+    assert counts["ext_rows_launched"] == sum(len(c[2]) * max(c[2])
+                                              for c in calls)
+    assert counts["ext_rows"] < counts["ext_rows_launched"]
+    assert counts["windows"] == len(qlens)
+    assert counts["window_bytes_padded"] == sum(c[0][0] * (c[0][1] + c[1][1])
+                                                for c in calls)
