@@ -52,8 +52,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    from megapath_nano_tpu_torch.utils.log import span
 
+    args = build_parser().parse_args(argv)
+    with span("cli.amplicon"):
+        return run(args)
+
+
+def run(args) -> int:
+    """One run of the CLI on parsed arguments; the exit code."""
     import numpy as np
 
     from megapath_nano_tpu_torch.align.pipeline import (AlignParams,

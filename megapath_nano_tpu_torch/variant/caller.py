@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from megapath_nano_tpu_torch.align.records import AlignList
+from megapath_nano_tpu_torch.utils.log import count, span
 from megapath_nano_tpu_torch.variant.candidates import (
     Candidate, candidate_tensor, extract_candidates)
 from megapath_nano_tpu_torch.variant.ensemble import ensemble_merge
@@ -69,27 +70,35 @@ def call_variants(
     min_quality: float = 0.0,
     batch_size: int = 256,
 ) -> list[VariantCall]:
-    cands = extract_candidates(align_list, reads, sequence_id, ref_seq,
-                               min_af=min_af, min_depth=min_depth)
-    if not cands:
-        return []
-    tensors = np.stack([candidate_tensor(c, ref_seq) for c in cands])
+    with span("variant.candidates"):
+        cands = extract_candidates(align_list, reads, sequence_id, ref_seq,
+                                   min_af=min_af, min_depth=min_depth)
+        count("candidates", len(cands))
+        if not cands:
+            return []
+        tensors = np.stack([candidate_tensor(c, ref_seq) for c in cands])
     # pad to fixed batch for stable jit shapes
     per_model = []
-    for model in models:
-        out: dict[tuple, dict[str, np.ndarray]] = {}
-        for s in range(0, len(cands), batch_size):
-            e = min(s + batch_size, len(cands))
-            chunk = tensors[s:e]
-            pad = batch_size - (e - s)
-            if pad:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((pad,) + chunk.shape[1:], np.float32)])
-            probs = model.predict(chunk)
-            for i in range(e - s):
-                key = (sequence_id, cands[s + i].position)
-                out[key] = {k: v[i] for k, v in probs.items()}
-        per_model.append(out)
+    n_batches = -(-len(cands) // batch_size)
+    with span("variant.model"):
+        for model in models:
+            out: dict[tuple, dict[str, np.ndarray]] = {}
+            for s in range(0, len(cands), batch_size):
+                e = min(s + batch_size, len(cands))
+                chunk = tensors[s:e]
+                pad = batch_size - (e - s)
+                if pad:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((pad,) + chunk.shape[1:],
+                                         np.float32)])
+                probs = model.predict(chunk)
+                for i in range(e - s):
+                    key = (sequence_id, cands[s + i].position)
+                    out[key] = {k: v[i] for k, v in probs.items()}
+            per_model.append(out)
+        count("model_rows", len(cands) * len(models))
+        count("model_rows_launched", n_batches * batch_size * len(models))
+        count("model_batches", n_batches * len(models))
     merged = ensemble_merge(per_model)
 
     calls = []

@@ -8,7 +8,9 @@ reference with match 4 / mismatch 6 / gapO 8 / gapE 2
 CIGARs (:362-406) — the same libssw-parity core (cpp/mpn_ssw.cc) does the
 alignment here, via the threaded banded batch API.
 
-The port's own copy of megapath_nano_tpu/variant/realign.py.
+The port's own copy of megapath_nano_tpu/variant/realign.py, with the
+covering reads and their offsets found from CIGAR run arrays (the same
+counts).
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ import numpy as np
 from megapath_nano_tpu_torch.align.records import AlignList
 from megapath_nano_tpu_torch.native.banded import banded_align_batch
 from megapath_nano_tpu_torch.utils.dna import revcomp
+from megapath_nano_tpu_torch.utils.log import count, span
+from megapath_nano_tpu_torch.variant.candidates import (NOT_COVERED,
+                                                        alignments_on,
+                                                        cigar_runs,
+                                                        offsets_at)
 
 READ_WINDOW = 200     # bases of read on each side of the candidate
 REF_WINDOW = 300      # bases of reference on each side
@@ -32,25 +39,6 @@ class RealignedCounts:
     base_counts: np.ndarray      # (5,) A/C/G/T/del support after realignment
     ref_support: int
     alt_support: int
-
-
-def _read_offset_at(cigar, oriented_from, seq_from, target_pos):
-    """Walk a CIGAR to find the oriented-read offset aligned at target_pos.
-    Returns None if the position is not covered by this alignment."""
-    qi, ti = oriented_from, seq_from
-    for length, op in cigar:
-        if op == "M":
-            if ti <= target_pos < ti + length:
-                return qi + (target_pos - ti)
-            qi += length
-            ti += length
-        elif op == "I":
-            qi += length
-        elif op == "D":
-            if ti <= target_pos < ti + length:
-                return -(qi + 1)       # deleted at this read (flag negative)
-            ti += length
-    return None
 
 
 def realign_candidates(
@@ -66,58 +54,78 @@ def realign_candidates(
     gap_extend: int = 2,
 ) -> list[RealignedCounts]:
     """For each candidate position, realign overlapping reads' local windows
-    and recount base support at the position."""
+    and recount base support at the position.
+
+    A read overlaps when its row's [sequence_from, sequence_to) holds the
+    position and its CIGAR (the (read_id, sequence_id) entry) has an M or D
+    run there; its offset at the position, on the original CIGAR and on
+    the realigned one, comes from `cigar_runs` arrays by `offsets_at`."""
     assert align_list.cigar_map is not None
-    rows = align_list.data[align_list.data["sequence_id"] == sequence_id]
+    with span("variant.realign"):
+        out, n_pairs = _realign(align_list, reads, sequence_id, ref_seq,
+                                positions, dict(match=match, mismatch=mismatch,
+                                                gap_open=gap_open,
+                                                gap_extend=gap_extend))
+        count("realign_calls", len(positions))
+        count("realign_pairs", n_pairs)
+    return out
+
+
+def _realign(align_list, reads, sequence_id, ref_seq, positions, scores):
+    """realign_candidates' body: (the counts, the pairs realigned)."""
+    rows, entries = alignments_on(align_list, sequence_id)
+    runs = cigar_runs([e[0] for e in entries], [e[1] for e in entries],
+                      rows["sequence_from"])
+    seq_from = rows["sequence_from"].astype(np.int64)
+    seq_to = rows["sequence_to"].astype(np.int64)
+    oriented: dict[int, np.ndarray] = {}
+
+    def oriented_read(i):
+        if i not in oriented:
+            read = reads[int(rows["read_id"][i])]
+            oriented[i] = revcomp(read) if entries[i][2] else read
+        return oriented[i]
+
     out = []
+    n_pairs = 0
     for pos in positions:
         ref_lo = max(pos - REF_WINDOW, 0)
         ref_hi = min(pos + REF_WINDOW + 1, len(ref_seq))
         ref_win = ref_seq[ref_lo:ref_hi]
+        cover = np.flatnonzero((seq_from <= pos) & (pos < seq_to))
+        offs = offsets_at(runs, cover, pos)
         local_reads = []
-        for row in rows:
-            if not (row["sequence_from"] <= pos < row["sequence_to"]):
-                continue
-            key = (int(row["read_id"]), int(row["sequence_id"]))
-            entry = align_list.cigar_map.get(key)
-            if entry is None:
-                continue
-            cigar, oriented_from, strand = entry
-            read = reads[int(row["read_id"])]
-            oriented = revcomp(read) if strand else read
-            off = _read_offset_at(cigar, oriented_from,
-                                  int(row["sequence_from"]), pos)
-            if off is None:
-                continue
+        for i, off in zip(cover[offs != NOT_COVERED].tolist(),
+                          offs[offs != NOT_COVERED].tolist()):
+            o = oriented_read(i)
             center = abs(off) - (1 if off < 0 else 0)
             lo = max(center - READ_WINDOW, 0)
-            hi = min(center + READ_WINDOW + 1, len(oriented))
-            local_reads.append(oriented[lo:hi])
+            hi = min(center + READ_WINDOW + 1, len(o))
+            local_reads.append(o[lo:hi])
         if not local_reads:
             out.append(RealignedCounts(pos, 0, np.zeros(5, np.int64), 0, 0))
             continue
-        alns = banded_align_batch(
-            local_reads, [ref_win] * len(local_reads), band=256,
-            match=match, mismatch=mismatch, gap_open=gap_open,
-            gap_extend=gap_extend)
+        n_pairs += len(local_reads)
+        alns = banded_align_batch(local_reads, [ref_win] * len(local_reads),
+                                  band=256, **scores)
+        live = [j for j, a in enumerate(alns) if a.score > 0]
         counts = np.zeros(5, np.int64)
-        target_local = pos - ref_lo
-        for lr, a in zip(local_reads, alns):
-            if a.score <= 0:
-                continue
-            off = _read_offset_at(a.cigar, a.read_begin, a.ref_begin,
-                                  target_local)
-            if off is None:
-                continue
-            if off < 0:
-                counts[4] += 1
-            else:
-                b = int(lr[off])
-                if b < 4:
-                    counts[b] += 1
+        if live:
+            offs = offsets_at(
+                cigar_runs([alns[j].cigar for j in live],
+                           [alns[j].read_begin for j in live],
+                           [alns[j].ref_begin for j in live]),
+                np.arange(len(live)), pos - ref_lo)
+            hit = offs != NOT_COVERED
+            counts[4] = int(np.count_nonzero(hit & (offs < 0)))
+            bases = np.array([local_reads[live[j]][off] for j, off in
+                              enumerate(offs.tolist())
+                              if off != NOT_COVERED and off >= 0],
+                             np.int64)
+            counts[:4] = np.bincount(bases[bases < 4], minlength=4)[:4]
         depth = int(counts.sum())
         ref_base = int(ref_seq[pos]) if ref_seq[pos] < 4 else -1
         ref_sup = int(counts[ref_base]) if 0 <= ref_base < 4 else 0
         out.append(RealignedCounts(pos, depth, counts, ref_sup,
                                    depth - ref_sup))
-    return out
+    return out, n_pairs

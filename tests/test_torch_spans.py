@@ -374,3 +374,61 @@ def test_cli_span_tree_and_chrome_trace(tmp_path):
             assert root["ts"] <= e["ts"] <= root["ts"] + root["dur"]
     # the epoch clock, in microseconds
     assert abs(root["ts"] / 1e6 - log.now_ns() / 1e9) < 600
+
+
+def test_amplicon_cli_span_tree_and_counters(tmp_path):
+    """`cli.amplicon` is the root; the steps under it, the variant stages
+    under `step.call_variants`, with their counters: alignments and bases
+    piled up, candidates, model rows (real and launched, per model) and
+    batches, realigned calls and pairs."""
+    from megapath_nano_tpu_torch.cli import amplicon as tamp
+    from megapath_nano_tpu_torch.variant import pretrained
+
+    rng = np.random.default_rng(21)
+    ref = random_sequence(rng, 3000)
+    donor = ref.copy()
+    snvs = [1200, 1500]
+    for p in snvs:
+        donor[p] = (donor[p] + 1) % 4
+    reads = [mutate(rng, donor[1000:1800], sub_rate=0.03, ins_rate=0.01,
+                    del_rate=0.02) for _ in range(40)]
+    reads = [revcomp(r) if i % 2 else r for i, r in enumerate(reads)]
+    RefDB.build([ref], ["chr1"], [0], ["ref"], [(1, 1, 1)]).save(
+        str(tmp_path / "db"))
+    fq = tmp_path / "r.fastq"
+    write_fastq(str(fq), [f"r{i}" for i in range(len(reads))], reads)
+    rc = tamp.main(["--query", str(fq), "--target_db", str(tmp_path / "db"),
+                    "--output_folder", str(tmp_path / "out"),
+                    "--device", "cpu"])
+    assert rc == 0
+    root = [s for s in RECORD.spans() if s.name == "cli.amplicon"][-1]
+    assert root.parent is None
+    by = _by_name(RECORD.request(root.id)[:-1])
+    ids = {s.id: s for v in by.values() for s in v}
+    assert {"step.align_to_target", "step.call_variants", "variant.pileup",
+            "variant.candidates", "variant.model",
+            "variant.realign"} <= set(by)
+    for name, parent in [("step.call_variants", "cli.amplicon"),
+                         ("variant.candidates", "step.call_variants"),
+                         ("variant.pileup", "variant.candidates"),
+                         ("variant.model", "step.call_variants"),
+                         ("variant.realign", "step.call_variants")]:
+        for s in by[name]:
+            par = ids.get(s.parent, root if s.parent == root.id else None)
+            assert par is not None and par.name == parent, name
+    (pile,) = by["variant.pileup"]
+    assert pile.counts["pileup_alignments"] > 30
+    assert pile.counts["pileup_bases"] > 30 * 700
+    (cand,) = by["variant.candidates"]
+    n = cand.counts["candidates"]
+    models = len(pretrained.manifest()["models"])
+    (model,) = by["variant.model"]
+    assert n > 0 and model.counts["model_rows"] == n * models
+    batches = -(-n // 256)
+    assert model.counts["model_batches"] == batches * models
+    assert model.counts["model_rows_launched"] == batches * 256 * models
+    (re,) = by["variant.realign"]
+    vcf = (tmp_path / "out" / "amplicon.vcf").read_text().splitlines()
+    assert re.counts["realign_calls"] >= sum(
+        1 for line in vcf if not line.startswith("#"))
+    assert re.counts["realign_pairs"] >= 30 * re.counts["realign_calls"]
