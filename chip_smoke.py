@@ -167,12 +167,18 @@ line.
 runs phases 1 and 12 only (phase 3's world and its monolithic map made
 first, for 12a) and ends with a {"mesh_launches": {...}} line.
 
-    python3 chip_smoke.py kernels
+    python3 chip_smoke.py kernels [TREE]
 
 runs phases 1 and 2 only (a quick check after a change to a kernel) and
 ends with a {"kernel_checks": [...]} line: the same per-kernel records
 without the launch counts (no map ran, so there is none to report), and
-without the "ok" line.
+without the "ok" line; then the row-time sweep of sw_scores_warp_kernel<S>
+(`row_sweep`): band 512 on 16 kb windows at 128, 528, 1056 and 2112 pairs
+(a quarter, one, two and four warps a scheduler of an H100's 528) and band
+128 on 1.5 kb windows at 1024 pairs, each with the ns a row costs a
+scheduler and the SASS instructions of the kernel's row loops, ending with
+a {"row_sweep": [...]} line. With TREE, phase 1 and the sweep only, of
+TREE's package.
 
     python3 chip_smoke.py chain [TREE]
 
@@ -184,15 +190,17 @@ synchronisations a call, the host's wait behind queued work) and ends with a
 
 runs phases 1, 3 and 5 only: the two maps with their timed runs, stage
 times and profile. With TREE (a directory that holds megapath_nano_tpu_torch/
-and cpp/ of another checkout), `chain` and `maps` import that package
-instead of this one's: two versions can be timed in turn on one card, one
-after the other.
+and cpp/ of another checkout), `kernels`, `chain` and `maps` import that
+package instead of this one's: two versions can be timed in turn on one
+card, one after the other.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -797,6 +805,102 @@ def chain_times(rng, tree):
             f"{syncs} synchronisations in {iters} calls; host "
             f"{host_ms:.3f} ms in a call behind {rec['queued_ms']:.2f} ms "
             f"of queued work")
+        out.append(rec)
+    return out
+
+
+def sass_row_loops(lib_path):
+    """{S: [(SASS instructions a row, rows the loop body holds), ...]} of
+    the row loops of sw_scores_warp_kernel<S> in the built library (one
+    loop a path of rows, in the order of the code), from `cuobjdump -sass`:
+    a loop is the span from a backward branch's target to the branch that
+    holds no EXIT (the slow paths of the shuffles, for a warp that is not
+    converged, lie past the kernel's exit and branch back into the loop), a
+    row loop one that holds the row's two __shfl_down_sync (SHFL.DOWN), and
+    a row's count is the span's instructions over its rows. Static counts:
+    the block of code that moves the reference window on, which runs one
+    row in four, is in them. None where cuobjdump is missing."""
+    from megapath_nano_tpu_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        name = fn.split("\n", 1)[0]
+        m = re.search(r"sw_scores_warp_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        ins = [(int(a, 16), op) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", fn)]
+        ins = [(a, op) for a, op in ins if not op.startswith("NOP")]
+        loops = []
+        for a, op in ins:
+            b = re.search(r"\bBRA\b[^0-9]*0x([0-9a-f]+)", op)
+            if not b or int(b.group(1), 16) >= a:
+                continue
+            body = [o for x, o in ins if int(b.group(1), 16) <= x <= a]
+            rows = sum("SHFL.DOWN" in o for o in body) // 2
+            if rows and not any(o.split()[-1] == "EXIT" for o in body):
+                loops.append((len(body) / rows, rows))
+        out[int(m.group(1))] = loops
+    return out
+
+
+# (band, read length, pairs) of the row-time sweep
+ROW_SWEEP = [(512, 16384, 128), (512, 16384, 528), (512, 16384, 1056),
+             (512, 16384, 2112), (128, 1536, 1024)]
+
+
+def row_sweep(rng, tree):
+    """Time sw_scores_warp_kernel<S> of the package under `tree` on the
+    shapes of ROW_SWEEP (windows as long as the read, 6% errors): CUDA
+    events over a few launches after one to warm up. A row costs a
+    scheduler `ns_per_row_sched`: the launch's time x the schedulers that
+    hold a warp / the rows of all pairs (with fewer pairs than schedulers,
+    the time a row of one warp alone). Returns the records of the
+    {"row_sweep": [...]} line."""
+    import torch
+
+    from megapath_nano_tpu_torch.kernels import build, sw
+
+    dev = torch.device("cuda")
+    schedulers = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    build.load()
+    loops = sass_row_loops(build.library_path())
+    log(f"  sw_scores_warp_kernel<S> row loops (SASS a row, rows a body): "
+        f"{loops}")
+    out = []
+    for band, q, n in ROW_SWEEP:
+        arrays = sw_batch(rng, n, q, q, 0.06)
+        ra, rl, ta, tl = (torch.from_numpy(x).to(dev) for x in arrays)
+
+        def call():
+            return sw.banded_sw_scores(ra, rl, ta, tl, band=band,
+                                       **SW_PARAMS)
+
+        call()
+        torch.cuda.synchronize()
+        ms = cuda_ms(call, 3)
+        rows = int(arrays[1].astype(np.int64).sum())
+        ns_row = 1e6 * ms * min(n, schedulers) / rows
+        sass = loops and loops.get(band // 32)
+        least = min(x for x, _ in sass) if sass else None
+        bnd = sw_bound(arrays, band, SW_SCORES_OPS_PER_CELL, 3)
+        rec = {"tree": tree, "band": band, "read": q, "pairs": n,
+               "warps_per_sched": n / schedulers, "ms": ms,
+               "ns_per_row_sched": ns_row, "sass_per_row": least,
+               "ns_per_sass": ns_row / least if least else None,
+               "roofline_pct": 100 * bnd[0] / ms,
+               "packed_launches": sw.banded_sw_scores.packed_launches
+               if hasattr(sw.banded_sw_scores, "packed_launches") else None}
+        log(f"  sweep {tree} band {band}, {n} x {q}: {ms:.3f} ms, "
+            f"{ns_row:.1f} ns a row a scheduler "
+            f"({rec['warps_per_sched']:.2f} warps a scheduler), "
+            f"{rec['roofline_pct']:.2f}% of the bound; SASS a row {least}")
         out.append(rec)
     return out
 
@@ -2928,10 +3032,10 @@ def kernels_line(kstats, paf_launches=None, cigar_launches=None,
 def main(argv):
     import torch
 
-    if argv not in ([], ["kernels"], ["profile"], ["amr"], ["variant"],
-                    ["mesh"]) and argv[:1] not in (["chain"], ["maps"]):
-        raise SystemExit("usage: chip_smoke.py [kernels | profile | amr | "
-                         "variant | mesh | chain [TREE] | maps [TREE]]")
+    if argv not in ([], ["profile"], ["amr"], ["variant"], ["mesh"]) \
+            and argv[:1] not in (["kernels"], ["chain"], ["maps"]):
+        raise SystemExit("usage: chip_smoke.py [kernels [TREE] | profile | "
+                         "amr | variant | mesh | chain [TREE] | maps [TREE]]")
     rng = np.random.default_rng(2026)
     if argv == ["profile"]:
         phase_device()
@@ -2986,6 +3090,12 @@ def main(argv):
         print(json.dumps({"chain_times": chain_times(
             rng, argv[1] if len(argv) > 1 else ".")}), flush=True)
         return
+    if argv[:1] == ["kernels"] and len(argv) > 1:
+        phase_device()
+        sweep = row_sweep(rng, argv[1])
+        log(nvidia_smi_line())
+        print(json.dumps({"row_sweep": sweep}), flush=True)
+        return
     marks = [("start", time.perf_counter())]
     phase_device()
     kstats = phase_kernels(rng)
@@ -2993,6 +3103,8 @@ def main(argv):
     if argv:
         log(nvidia_smi_line())
         print(kernels_line(kstats), flush=True)
+        sweep = row_sweep(rng, ".")
+        print(json.dumps({"row_sweep": sweep}), flush=True)
         return
     index, genomes, aligner, reads, truth, paf_launches, mono = \
         phase_map(rng)
@@ -3024,8 +3136,9 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    # `chain TREE` and `maps TREE` run the package of another checkout
+    # `kernels TREE`, `chain TREE` and `maps TREE` run the package of
+    # another checkout
     sys.path.insert(0, os.path.abspath(sys.argv[2])
-                    if sys.argv[1:2] in (["chain"], ["maps"])
+                    if sys.argv[1:2] in (["kernels"], ["chain"], ["maps"])
                     and len(sys.argv) > 2 else ROOT)
     main(sys.argv[1:])

@@ -100,7 +100,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     sw_args = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, i]
     lib.mpn_sw_full.argtypes = sw_args
     lib.mpn_sw_scores.restype = i
-    lib.mpn_sw_scores.argtypes = sw_args
+    lib.mpn_sw_scores.argtypes = sw_args + [ctypes.POINTER(i)]
     lib.mpn_sw_full_max_band.restype = i
     lib.mpn_sw_full_max_band.argtypes = [i, ctypes.POINTER(i)]
     lib.mpn_sw_scores_max_band.restype = i
@@ -130,11 +130,11 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`; under a lock, since the map path
-    launches from two worker threads."""
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to `wrapper.launches` (or another count of the wrapper's);
+    under a lock, since the map path launches from two worker threads."""
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def launch_args(t) -> tuple[int, ctypes.c_void_p]:

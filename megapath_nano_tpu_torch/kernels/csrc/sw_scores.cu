@@ -13,14 +13,18 @@
 // the two forms give the same scores; this kernel follows its own
 // reference line by line all the same.)
 //
-// What bounds it on this card: the integer instruction rate and the latency
-// of one row, never bytes. A pair does q * band cells, each of at least 7
-// compares, maxima and selects on the integer pipe beside its additions
-// (about 30 elementwise operations as the plain version spells the step
-// out), against q + t + 20 bytes of traffic, and row i + 1 cannot
+// What bounds it on this card: the rate at which a scheduler issues integer
+// instructions, then the latency of one row; never bytes. A pair does
+// q * band cells, each of at least 7 compares, maxima and selects on the
+// integer pipe, against q + t + 20 bytes of traffic, and row i + 1 cannot
 // start before row i's F chain (a prefix maximum across the whole band) is
-// done. The map path calls it with 1024 pairs, an eighth of the warps the
-// card can hold, so what a row costs one warp shows directly.
+// done. The exact rows below cost 437 / 259 / 166 SASS instructions a row
+// at S = 16 / 8 / 4 (27 / 32 / 42 a slot; ptxas: 115 / 72 / 48 registers),
+// and at band 512 a second warp on a scheduler cut the time a row costs it
+// by only 18% (PERF.md): issue slots, not occupancy, set the pace. The packed
+// rows (below) do the same row in 272 / 173 / 103 (17 / 22 / 26 a slot;
+// 113 / 72 / 48 registers for the kernel with both paths): 1.70x faster a
+// row for one warp alone at band 512 and 1.82x at four warps a scheduler.
 //
 // Warp-per-pair form (sw_scores_warp_kernel<S>, band = 32 * S): one warp
 // walks one pair, lane l owns the slots k = S*l .. S*l + S - 1, and H and E
@@ -44,6 +48,37 @@
 // indexed with int offsets inside a pair (below 2**23) and 64-bit offsets
 // between pairs: this kernel has no window limit and serves reads of 65536
 // bases and more.
+//
+// Packed rows (walk_packed): the warp form's rows for every pair whose
+// window holds only the codes 0..4 within its length (odd_codes checks
+// that, once a pair), under a scoring that the packing holds
+// (packed_rows_fit; a launch that fails it walks exact rows). The same
+// scores, tie rules and order of rows, in fewer instructions a slot:
+// - Substitution: the row's reference codes travel as nibbles, and one
+//   byte permute a group of four slots looks their substitution up in a
+//   table of bytes built once a row from the read code; a slot then costs
+//   one sign-extending byte extract.
+// - No dead-cell tests. A dead cell left of the window has substitution 0
+//   and only dead cells above and left of it, so it computes H = E = 0
+//   itself, as the reference forces; its Hnod is 0 where the reference's is
+//   NEG, which only feeds F values below 0, and F enters H through
+//   max(Hnod, F, 0). The dead cells right of the window feed only each
+//   other (diagonal, vertical and F all lead right or down a dead column),
+//   and none of their H exceeds the largest live H of the rows before or of
+//   its own row, which lies left of it (gap penalties >= 0), so none wins
+//   the (max score, min row, min slot) reduction.
+// - E is kept as E - gap_extend, floored at 0 in the same add-maximum.
+// - F: g is taken in the lane's frame (k0 * gap_extend left out), so the
+//   slot terms are the same in every lane; part 1 keeps the lane's running
+//   maximum p of g and, with it, A = max(Hnod, p + d, 0), all of H but the
+//   prefix from the lanes to the left; the scan moves each lane's total
+//   into the receiving lane's frame in its add-maximum; part 3 is one
+//   add-maximum a slot, H = max(y + d, A), with no chain through the slots.
+// - The running best: a key 16 * H + 15 - j a slot, a three-way maximum
+//   over the row's keys, and the row replaces the lane's best only when its
+//   H part is larger: rows in ascending i, then the lowest slot.
+// tests/test_torch_sw_scan.py writes these rows out in numpy and holds them
+// to the plain version and to the TPU package.
 //
 // Block-per-pair form (sw_scores_block_kernel): the DP state of every slot
 // in 4 planes of the band, a thread for every nt-th slot, the k + 1
@@ -158,25 +193,16 @@ __device__ __forceinline__ void score_row(ScoreLane<S>& st, int i, int rc,
   }
 }
 
+// The rows of one pair as written above (exact rows): the lane's best cell
+// as (score, row, slot).
 template <int S>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-    sw_scores_warp_kernel(const int8_t* __restrict__ reads,
-                          const int32_t* __restrict__ rlens,
-                          const int8_t* __restrict__ refs,
-                          const int32_t* __restrict__ tlens,
-                          int32_t* __restrict__ out, int n, int q_max,
-                          int t_max, Scoring sc) {
-  constexpr int band = 32 * S;
-  constexpr int half = band / 2;
-  const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (pair >= n) return;  // the whole warp leaves together
-  const int8_t* read = reads + static_cast<size_t>(pair) * q_max;
-  const int8_t* ref = refs + static_cast<size_t>(pair) * t_max;
-  const int rlen = mpn::clamp_read_len(rlens[pair], q_max);
-  const int tlen = mpn::clamp_ref_len(tlens[pair], t_max);
+__device__ __forceinline__ void walk_exact(const int8_t* read,
+                                           const int8_t* ref, int rlen,
+                                           int tlen, int q_max, int lane,
+                                           const Scoring& sc, int& best_v,
+                                           int& best_i, int& best_k) {
+  constexpr int half = 16 * S;
   const int k0 = S * lane;
-
   ScoreLane<S> st;
 #pragma unroll
   for (int j = 0; j < S; ++j) st.h[j] = st.e[j] = 0;
@@ -199,12 +225,253 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
       read_ahead = mpn::read_word(read, i + 5, q_max);
     }
   }
+  best_v = st.best_v;
+  best_i = st.best_ij >> 4;
+  best_k = k0 + (st.best_ij & 15);
+}
+
+// ---------------------------------------------------------------------------
+// Packed rows: the scores of the exact rows for a pair whose window holds
+// only the codes 0..4 within its length, in fewer instructions a slot (the
+// header note says how). mpn_sw_scores checks the scoring
+// (packed_rows_fit), odd_codes the window.
+
+// prmt.b32 d, a, b, sel: byte n of d is the byte that bits 4n .. 4n + 2 of
+// sel pick of the eight of a (0..3) and b (4..7), or its sign in all 8 bits
+// where bit 4n + 3 is set; the bits of sel above 15 are not read.
+// (__byte_perm clears those bits and every bit 4n + 3 first, an
+// instruction more.)
+__device__ __forceinline__ uint32_t permute(uint32_t a, uint32_t b,
+                                            uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// Byte j of w, sign-extended: one permute.
+__device__ __forceinline__ int signed_byte(uint32_t w, int j) {
+  return static_cast<int>(permute(w, 0u, 0x8880u + 0x1111u * j));
+}
+
+// The reference codes of a lane for four consecutive rows i0 .. i0 + 3 as
+// nibbles: w[x] holds those of slots 4x .. 4x + 7 of row i0, so row i0 + r's
+// codes of slots 4x .. 4x + 3 are the low 16 bits of w[x] >> 4r, a byte
+// permute's selector as they stand. Codes past the window are the dead code
+// 5 (mpn::ref_word); a block of four rows brings one new byte word, loaded a
+// block ahead as in mpn::RefWindow.
+template <int S>
+struct NibbleWindow {
+  static constexpr int kGroups = S / 4;
+  uint32_t w[kGroups];
+  uint32_t ahead;  // ref positions i0 + base + S + 4 .. + 7, as bytes
+
+  // a byte word of codes 0..15 with its codes c0, c1 in byte 0 and c2, c3
+  // in byte 2, a nibble each
+  static __device__ __forceinline__ uint32_t pair_nibbles(uint32_t b) {
+    return b | (b >> 4);
+  }
+
+  __device__ __forceinline__ void init(const int8_t* ref, int base,
+                                       int tlen) {
+#pragma unroll
+    for (int x = 0; x < kGroups; ++x)
+      w[x] = permute(pair_nibbles(mpn::ref_word(ref, base + 4 * x, tlen)),
+                     pair_nibbles(mpn::ref_word(ref, base + 4 * x + 4, tlen)),
+                     0x6420);
+    ahead = mpn::ref_word(ref, base + S + 4, tlen);
+  }
+
+  // Move on to the block that starts at row i0 (the one after the current),
+  // and start the load for the block after it.
+  __device__ __forceinline__ void advance(const int8_t* ref, int i0, int base,
+                                          int tlen) {
+#pragma unroll
+    for (int x = 0; x + 1 < kGroups; ++x) w[x] = w[x + 1];
+    w[kGroups - 1] = permute(w[kGroups - 1], pair_nibbles(ahead), 0x6432);
+    ahead = mpn::ref_word(ref, i0 + base + S + 4, tlen);
+  }
+};
+
+// Whether the tlen bases of a window hold a code other than 0..4 (A, C, G,
+// T, N); the whole warp gets the answer. Such a pair walks exact rows: a
+// code 5 inside the window is a dead cell that packed rows would not see,
+// and codes from 6 up or below 0 do not fit a nibble.
+__device__ __forceinline__ bool odd_codes(const int8_t* ref, int tlen,
+                                          int lane) {
+  bool odd = false;
+  for (int o = 4 * lane; o < tlen; o += 128) {
+    uint32_t b = __ldg(reinterpret_cast<const uint32_t*>(ref + o));
+    if (tlen - o < 4) b &= (1u << (8 * (tlen - o))) - 1u;  // past tlen: 0
+    // a byte's top bit is set when it is 0x80 or more, or when it is 5 or
+    // more and adding 0x7b carries into it (a byte below 0x80 cannot carry
+    // out of itself)
+    odd |= ((b | ((b & 0x7f7f7f7fu) + 0x7b7b7b7bu)) & 0x80808080u) != 0u;
+  }
+  return __any_sync(kAllLanes, odd);
+}
+
+// What the packed rows keep constant, the same in every lane. g and F are
+// taken in the lane's own frame (k0 * gap_extend left out of g; the lane's
+// slot j is band slot k0 + j), so their slot terms do not depend on the lane.
+template <int S>
+struct PackedConsts {
+  int go, ge;
+  int c[S];         // j * gap_extend - gap_open: g = Hnod + c[j]
+  int d[S];         // (1 - j) * gap_extend: F = y + d[j], y the prefix of g
+  uint32_t xw, mx;  // -mismatch in each byte; (match ^ -mismatch) & 0xff
+
+  __device__ __forceinline__ explicit PackedConsts(const Scoring& sc)
+      : go(sc.gap_open), ge(sc.gap_extend) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      c[j] = j * ge - go;
+      d[j] = (1 - j) * ge;
+    }
+    xw = (static_cast<uint32_t>(-sc.mismatch) & 0xFFu) * 0x01010101u;
+    mx = static_cast<uint32_t>(sc.match ^ -sc.mismatch) & 0xFFu;
+  }
+
+  // A row's substitution by reference code as bytes 0..3 (codes 0..3; the
+  // codes 4..7 read zero beyond the word): match at the read's base,
+  // -mismatch at the other bases, 0 at N (4) and at the dead code 5. A read
+  // code other than 0..4 matches no base.
+  __device__ __forceinline__ uint32_t table(uint32_t rc) const {
+    return rc < 4u ? xw ^ (mx << (8 * rc)) : (rc == 4u ? 0u : xw);
+  }
+};
+
+template <int S>
+struct PackedLane {
+  int h[S + 1];   // H; index S holds, for one row, slot 0 of lane + 1
+  int ee[S + 1];  // E - gap_extend
+  int best;       // 16 * H + 15 - j of the lane's best cell (H < 2**27)
+  int best_i;     // its row
+};
+
+// Row i: sub[x] holds the substitution of slots 4x .. 4x + 3 as bytes.
+template <int S>
+__device__ __forceinline__ void packed_row(PackedLane<S>& st, int i,
+                                           const uint32_t (&sub)[S / 4],
+                                           int lane,
+                                           const PackedConsts<S>& pc) {
+  st.h[S] = __shfl_down_sync(kAllLanes, st.h[0], 1);
+  st.ee[S] = __shfl_down_sync(kAllLanes, st.ee[0], 1);
+  if (lane == 31) st.h[S] = st.ee[S] = kNeg;  // right of the band
+
+  // part 1, in place: E, Hnod, the lane's running maximum p of g, and
+  // A = max(Hnod, F from the lane's own slots, 0), all that H needs but the
+  // prefix from the lanes to the left
+  int p = kNeg;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int s = signed_byte(sub[j >> 2], j & 3);
+    const int e_new = __viaddmax_s32(st.h[j + 1], -pc.go, st.ee[j + 1]);
+    const int h_nod = __viaddmax_s32(st.h[j], s, e_new);
+    st.ee[j] = __viaddmax_s32(e_new, -pc.ge, -pc.ge);  // max(E, 0) - ge
+    st.h[j] = __viaddmax_s32_relu(p, pc.d[j], h_nod);
+    p = __viaddmax_s32(h_nod, pc.c[j], p);
+  }
+
+  // part 2: inclusive maximum scan of p over the lanes, each value moved
+  // into the receiving lane's frame (S * gap_extend a lane), then the
+  // exclusive prefix y; a lane below s gets its own p back, which the move
+  // only lowers (gap_extend >= 0)
+  int t = p;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1)
+    t = __viaddmax_s32(__shfl_up_sync(kAllLanes, t, s), -S * s * pc.ge, t);
+  int y = __shfl_up_sync(kAllLanes, t, 1) - S * pc.ge;
+  if (lane == 0) y = kNeg;
+
+  // part 3: H = max(y + d, A), and the row's best key: its largest H, then
+  // its lowest slot
+  int key[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    st.h[j] = __viaddmax_s32(y, pc.d[j], st.h[j]);
+    key[j] = st.h[j] * 16 + (15 - j);
+  }
+  int m = kNeg;
+#pragma unroll
+  for (int x = 0; x < S; x += 4)
+    m = __vimax3_s32(m, __vimax3_s32(key[x], key[x + 1], key[x + 2]),
+                     key[x + 3]);
+  if (m > (st.best | 15)) {  // a larger H: rows in ascending i, strict >
+    st.best = m;
+    st.best_i = i;
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void walk_packed(const int8_t* read,
+                                            const int8_t* ref, int rlen,
+                                            int tlen, int q_max, int lane,
+                                            const Scoring& sc, int& best_v,
+                                            int& best_i, int& best_k) {
+  constexpr int half = 16 * S;
+  const int k0 = S * lane;
+  const PackedConsts<S> pc(sc);
+  PackedLane<S> st;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    st.h[j] = 0;
+    st.ee[j] = -pc.ge;
+  }
+  st.best = 15;  // H 0 at slot 0
+  st.best_i = 0;
+
+  NibbleWindow<S> win;
+  win.init(ref, k0 - half, tlen);
+  uint32_t read_now = mpn::read_word(read, 0, q_max);
+  uint32_t read_ahead = mpn::read_word(read, 4, q_max);
+
+  for (int i = 0; i < rlen; ++i) {
+    const int r = i & 3;
+    const uint32_t tab = pc.table((read_now >> (8 * r)) & 0xFFu);
+    uint32_t sub[S / 4];
+#pragma unroll
+    for (int x = 0; x < S / 4; ++x)
+      sub[x] = permute(tab, 0u, win.w[x] >> (4 * r));
+    packed_row<S>(st, i, sub, lane, pc);
+    if (r == 3) {  // the next row starts a block of four
+      win.advance(ref, i + 1, k0 - half, tlen);
+      read_now = read_ahead;
+      read_ahead = mpn::read_word(read, i + 5, q_max);
+    }
+  }
+  best_v = st.best >> 4;
+  best_i = st.best_i;
+  best_k = k0 + 15 - (st.best & 15);
+}
+
+template <int S>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    sw_scores_warp_kernel(const int8_t* __restrict__ reads,
+                          const int32_t* __restrict__ rlens,
+                          const int8_t* __restrict__ refs,
+                          const int32_t* __restrict__ tlens,
+                          int32_t* __restrict__ out, int n, int q_max,
+                          int t_max, Scoring sc, bool packed) {
+  constexpr int half = 16 * S;
+  const int lane = threadIdx.x & 31;
+  const int pair = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (pair >= n) return;  // the whole warp leaves together
+  const int8_t* read = reads + static_cast<size_t>(pair) * q_max;
+  const int8_t* ref = refs + static_cast<size_t>(pair) * t_max;
+  const int rlen = mpn::clamp_read_len(rlens[pair], q_max);
+  const int tlen = mpn::clamp_ref_len(tlens[pair], t_max);
+
+  int best_v, best_i, best_k;
+  if (packed && !odd_codes(ref, tlen, lane))  // the same in the whole warp
+    walk_packed<S>(read, ref, rlen, tlen, q_max, lane, sc, best_v, best_i,
+                   best_k);
+  else
+    walk_exact<S>(read, ref, rlen, tlen, q_max, lane, sc, best_v, best_i,
+                  best_k);
 
   // warp reduction by (max score, min row, min slot) on one packed key
-  const int best_i = st.best_ij >> 4;
-  const int best_k = k0 + (st.best_ij & 15);
   const unsigned long long key = mpn::warp_max_key(
-      (static_cast<unsigned long long>(st.best_v) << 32) |
+      (static_cast<unsigned long long>(best_v) << 32) |
       (static_cast<unsigned long long>(kRowMax - best_i) << 10) |
       static_cast<unsigned long long>(1023 - best_k));
   if (lane != 0) return;
@@ -364,10 +631,25 @@ template <int S>
 void launch_warp_form(const int8_t* reads, const int32_t* rlens,
                       const int8_t* refs, const int32_t* tlens, int32_t* out,
                       int n, int q_max, int t_max, const Scoring& sc,
-                      cudaStream_t stream) {
+                      bool packed, cudaStream_t stream) {
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   sw_scores_warp_kernel<S><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
-      reads, rlens, refs, tlens, out, n, q_max, t_max, sc);
+      reads, rlens, refs, tlens, out, n, q_max, t_max, sc, packed);
+}
+
+// Whether the warp form's pairs may walk packed rows under this scoring and
+// read length: no dead-cell tests need gap penalties of at least 0 (a dead
+// cell left of the window then stays at 0, and none right of it wins), the
+// substitution bytes need match and -mismatch in a signed byte, and the
+// best-cell key 16 * H + 15 needs H <= match * (q_max + 128) below 2**27.
+// The gap bounds keep every g and F of the band far from int32's ends.
+bool packed_rows_fit(const Scoring& sc, int q_max) {
+  return sc.gap_open >= 0 && sc.gap_open <= 65535 && sc.gap_extend >= 0 &&
+         sc.gap_extend <= 65535 && sc.match >= -128 && sc.match <= 127 &&
+         sc.mismatch >= -127 && sc.mismatch <= 128 &&
+         static_cast<long long>(sc.match > 0 ? sc.match : 0) *
+                 (q_max + 128) <
+             (1LL << 27);
 }
 
 }  // namespace
@@ -388,14 +670,16 @@ extern "C" int mpn_sw_scores_max_band(int device, int* band) {
 // 2 = block per pair with the planes in shared memory, 3 = block per pair
 // with the planes in `scratch`, scratch_blocks * 4 * band int32 of device
 // memory (the pairs go in launches of scratch_blocks blocks, in turn on the
-// stream).
+// stream). *packed (when not null) is set to 1 when the warp form was
+// launched with packed rows allowed (packed_rows_fit), else to 0.
 extern "C" int mpn_sw_scores(const void* reads_, const void* rlens_,
                              const void* refs_, const void* tlens_,
                              void* out_, int n, int q_max, int t_max,
                              int band, int match, int mismatch, int gap_open,
                              int gap_extend, int form, int device,
                              void* stream_, void* scratch,
-                             int scratch_blocks) {
+                             int scratch_blocks, int* packed) {
+  if (packed != nullptr) *packed = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
@@ -415,15 +699,16 @@ extern "C" int mpn_sw_scores(const void* reads_, const void* rlens_,
   // one percent faster than the warp form (times in PERF.md): too little to
   // keep a second path for, so every band with a warp form takes it.
   if (form == 0) form = mpn::has_warp_form(band) ? 1 : 2;
+  const bool pack = form == 1 && packed_rows_fit(sc, q_max);
   if (form == 1 && band == 128)
     launch_warp_form<4>(reads, rlens, refs, tlens, out, n, q_max, t_max, sc,
-                        stream);
+                        pack, stream);
   else if (form == 1 && band == 256)
     launch_warp_form<8>(reads, rlens, refs, tlens, out, n, q_max, t_max, sc,
-                        stream);
+                        pack, stream);
   else if (form == 1 && band == 512)
     launch_warp_form<16>(reads, rlens, refs, tlens, out, n, q_max, t_max, sc,
-                         stream);
+                         pack, stream);
   else if (form == 2) {
     size_t smem = 0;
     err = mpn::block_smem(
@@ -444,5 +729,6 @@ extern "C" int mpn_sw_scores(const void* reads_, const void* rlens_,
     }
   } else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (packed != nullptr) *packed = pack ? 1 : 0;
   return static_cast<int>(cudaGetLastError());
 }

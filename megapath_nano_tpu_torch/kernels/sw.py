@@ -13,7 +13,9 @@ slots, the score-only step does not.
 Each wrapper dispatches on where the tensors lie: on the CPU it runs the
 plain version (on `_prepare`'s padded copy, as the TPU wrapper pads), on a
 CUDA device it launches the kernel on the caller's windows (or raises). It
-counts its kernel launches in `<wrapper>.launches`.
+counts its kernel launches in `<wrapper>.launches`, and
+`banded_sw_scores.packed_launches` counts those whose pairs may walk the
+score-only kernel's packed rows.
 
 The CUDA kernels walk a row in another order than the reference: each lane
 of a warp owns band / 32 consecutive slots, the F chain is a scan inside the
@@ -397,10 +399,12 @@ def scratch_blocks(entry, n, band):
 
 
 def _launch(entry, wrapper, out_shape, reads, read_lens, refs, ref_lens, *,
-            band, match, mismatch, gap_open, gap_extend, form):
+            band, match, mismatch, gap_open, gap_extend, form, flag=None):
     """Launch one of the two extension kernels on the caller's windows: the
     kernels form the dead cells left of a window and past its length
-    themselves, so no padded copy (`_prepare`) is made on this route."""
+    themselves, so no padded copy (`_prepare`) is made on this route.
+    `flag`, a ctypes int, is passed by reference as the last argument
+    (mpn_sw_scores reports there whether it allowed packed rows)."""
     device, stream = build.launch_args(reads)
     form = pick_form(entry, form, band, block_max_band(entry, device))
     n = reads.shape[0]
@@ -424,7 +428,7 @@ def _launch(entry, wrapper, out_shape, reads, read_lens, refs, ref_lens, *,
         ref_lens.data_ptr(), out.data_ptr(), n, reads.shape[1], refs.shape[1],
         band, match, mismatch, gap_open, gap_extend, form,
         device, stream, None if scratch is None else scratch.data_ptr(),
-        blocks), entry)
+        blocks, *(() if flag is None else (ctypes.byref(flag),))), entry)
     build.count_launch(wrapper)
     return out
 
@@ -531,8 +535,13 @@ def banded_sw_scores_torch(reads, read_lens, refs_padded, *, band, match,
 
 def _sw_scores_cuda(reads, read_lens, refs, ref_lens, *, form=FORM_BY_SHAPE,
                     **kw):
-    return _launch("mpn_sw_scores", banded_sw_scores, (3, reads.shape[0]),
-                   reads, read_lens, refs, ref_lens, form=form, **kw)
+    packed = ctypes.c_int(0)
+    out = _launch("mpn_sw_scores", banded_sw_scores, (3, reads.shape[0]),
+                  reads, read_lens, refs, ref_lens, form=form, flag=packed,
+                  **kw)
+    if packed.value:
+        build.count_launch(banded_sw_scores, "packed_launches")
+    return out
 
 
 def banded_sw_scores(reads, read_lens, refs, ref_lens, *, band: int = 128,
@@ -563,3 +572,8 @@ def banded_sw_scores(reads, read_lens, refs, ref_lens, *, band: int = 128,
 
 
 banded_sw_scores.launches = 0
+# launches of the warp form whose pairs may walk packed rows: at bands 128,
+# 256 and 512 under a scoring that the packing holds (csrc/sw_scores.cu,
+# packed_rows_fit); a pair with a code other than 0..4 in its window walks
+# exact rows all the same
+banded_sw_scores.packed_launches = 0

@@ -135,6 +135,102 @@ def test_sw_kernels_hard_batches_match_plain(cuda, case, band, form):
     assert torch.equal(got.cpu(), ref.cpu())
 
 
+def _edge_pairs(case, rng):
+    """(read, ref) pairs of codes 0..4 at the edges of the score-only
+    kernel's packed rows (the cases of tests/test_torch_sw_scan.py)."""
+    if case == "later_row_equal":   # the best recurs in later rows
+        x = rng.integers(0, 4, 80).astype(np.int8)
+        dip = x.copy()
+        dip[20:22] = (dip[20:22] + 1) % 4
+        dip[30:32] = (dip[30:32] + 2) % 4
+        return [(dip[:60].copy(), x[:70].copy()),
+                (np.concatenate([x[:12], (x[12:14] + 1) % 4, x[14:18],
+                                 (x[18:20] + 3) % 4, x[20:24]]), x[:24]),
+                (_rep([0, 1], 40), np.concatenate([_rep([0, 1], 20),
+                                                  _rep([2], 6),
+                                                  _rep([0, 1], 20)]))]
+    if case == "equal_lanes":       # equal maxima in one row, other lanes
+        seg = rng.integers(0, 4, 24).astype(np.int8)
+        return [(seg, np.concatenate([seg, rng.integers(0, 4, gap).astype(
+            np.int8), seg])) for gap in (4, 8, 20, 40, 100, 180, 300)]
+    if case == "short_windows":     # dead on both sides of the first rows
+        read = rng.integers(0, 4, 400).astype(np.int8)
+        return [(read, read[:n].copy()) for n in (1, 2, 5, 30, 63, 64, 65,
+                                                  100, 127, 128, 129, 255,
+                                                  256, 257)]
+    if case == "long_indels":       # F and E chains across many lanes
+        x = rng.integers(0, 4, 700).astype(np.int8)
+        return [(np.concatenate([x[:40], x[40 + g:600]]), x) for g in
+                (1, 3, 4, 5, 9, 17, 33, 60, 100, 200)] \
+            + [(np.concatenate([x[:40], rng.integers(0, 4, g).astype(
+                np.int8), x[40:500]]), x[:520]) for g in (1, 4, 7, 18, 40,
+                                                          90, 180)]
+    if case == "all_n":
+        t = rng.integers(0, 4, 600).astype(np.int8)
+        return [(np.full(500, 4, np.int8), t), (t[:500].copy(),
+                                                np.full(600, 4, np.int8)),
+                (np.full(80, 4, np.int8), np.full(90, 4, np.int8))]
+    if case == "all_zero":          # every live H is 0
+        return [(_rep([0], 500), _rep([1], 620)),
+                (_rep([2, 3], 70), _rep([0, 1], 50)),
+                (_rep([1], 3), _rep([2], 700))]
+    raise AssertionError(case)
+
+
+EDGE_CASES = ["later_row_equal", "equal_lanes", "short_windows",
+              "long_indels", "all_n", "all_zero"]
+# the map's scoring and the native realignment's
+SCORINGS = [PARAMS, dict(match=4, mismatch=6, gap_open=8, gap_extend=2)]
+
+
+@pytest.mark.parametrize("scoring", SCORINGS, ids=["2-4-4-2", "4-6-8-2"])
+@pytest.mark.parametrize("band", [128, 256, 512])
+@pytest.mark.parametrize("case", EDGE_CASES + ["ties"])
+def test_sw_scores_packed_rows_match_plain(cuda, case, band, scoring):
+    """The warp form's packed rows at their edges, one launch that the
+    wrapper counts as packed."""
+    rng = np.random.default_rng(sum(map(ord, case)) + band)
+    arrays = _batch("ties") if case == "ties" \
+        else _pad(_edge_pairs(case, rng))
+    args = [torch.from_numpy(x).to(cuda) for x in arrays]
+    before = sw.banded_sw_scores.packed_launches
+    got = torch.stack(sw.banded_sw_scores(*args, band=band, **scoring))
+    assert sw.banded_sw_scores.packed_launches == before + 1
+    ref = sw.banded_sw_scores_torch(*sw._prepare(*args, band), band=band,
+                                    **scoring)
+    assert torch.equal(got.cpu(), ref.cpu())
+
+
+@pytest.mark.parametrize("band", [128, 256, 512])
+def test_sw_scores_exact_rows_match_plain(cuda, band):
+    """A pair whose window holds a code other than 0..4 (a 5 or 6 inside
+    its length) walks exact rows beside packed ones in the same launch, and
+    a scoring that the packing cannot hold (a match beyond a signed byte, a
+    negative gap penalty) sends the whole launch to exact rows, which the
+    wrapper does not count as packed."""
+    rng = np.random.default_rng(band + 7)
+    x = rng.integers(0, 4, 600).astype(np.int8)
+    odd5, odd6, odd_end = x[:500].copy(), x[:500].copy(), x[:500].copy()
+    odd5[200] = 5
+    odd6[50:60] = 6
+    odd_end[499] = 127
+    odd_read = x[10:450].copy()
+    odd_read[100:104] = 9           # a read code matching no base
+    pairs = [(x[10:450].copy(), w) for w in (odd5, odd6, odd_end)] \
+        + [(odd_read, x[:500].copy()), (x[10:450].copy(), x[:500].copy())]
+    args = [torch.from_numpy(a).to(cuda) for a in _pad(pairs)]
+    prepared = sw._prepare(*args, band)
+    for scoring, packed in ((PARAMS, 1),
+                            (dict(PARAMS, match=130), 0),
+                            (dict(PARAMS, gap_extend=-1), 0),
+                            (dict(PARAMS, gap_open=-2), 0)):
+        before = sw.banded_sw_scores.packed_launches
+        got = torch.stack(sw.banded_sw_scores(*args, band=band, **scoring))
+        assert sw.banded_sw_scores.packed_launches == before + packed
+        ref = sw.banded_sw_scores_torch(*prepared, band=band, **scoring)
+        assert torch.equal(got.cpu(), ref.cpu())
+
+
 @pytest.mark.parametrize("band", [384, 1024, 1152, 2048, 4096])
 def test_sw_kernels_other_bands_match_plain(cuda, band):
     """Bands without a warp-per-pair instantiation take the block form;

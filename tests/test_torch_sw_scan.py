@@ -9,7 +9,11 @@ row at a time against a copy of the scan, and as a whole DP (the row steps
 written out here around those pieces) against the plain versions, which
 share no code with them, and against the TPU package with backend="jnp".
 Inputs force ties: many equal values, values equal to and below NEG,
-all-dead rows. Everything is an integer, so the tolerance is 0."""
+all-dead rows. Everything is an integer, so the tolerance is 0.
+
+The score-only kernel's packed rows (csrc/sw_scores.cu, `walk_packed`) are
+written out here in plain numpy too (`_sw_scores_packed_rows`) and held to
+the same references."""
 
 import numpy as np
 import pytest
@@ -348,3 +352,181 @@ def test_blocked_order_other_scoring_ties(slots):
         assert torch.equal(
             _sw_scores_blocked(*prepared, band=band, **params),
             sw.banded_sw_scores_torch(*prepared, band=band, **params))
+
+
+# ---------------------------------------------------------------------------
+# the score-only kernel's packed rows
+
+
+def _packed_row_pairs(case, rng):
+    """Pairs for the packed rows beyond the tie cases: codes 0..4 only."""
+    if case == "later_row_equal":   # the best recurs in later rows
+        x = rng.integers(0, 4, 80).astype(np.int8)
+        dip = x.copy()
+        dip[20:22] = (dip[20:22] + 1) % 4     # -8, then +8 back over 4 rows
+        dip[30:32] = (dip[30:32] + 2) % 4
+        return [(dip[:60].copy(), x[:70].copy()),
+                (np.concatenate([x[:12], (x[12:14] + 1) % 4, x[14:18],
+                                 (x[18:20] + 3) % 4, x[20:24]]), x[:24]),
+                (_rep([0, 1], 40), np.concatenate([_rep([0, 1], 20),
+                                                  _rep([2], 6),
+                                                  _rep([0, 1], 20)]))]
+    if case == "equal_lanes":       # one read twice in the window: equal
+        seg = rng.integers(0, 4, 24).astype(np.int8)   # maxima in a row
+        return [(seg, np.concatenate([seg, rng.integers(0, 4, gap).astype(
+            np.int8), seg])) for gap in (4, 8, 20, 40, 100, 180)]
+    if case == "short_windows":     # dead on both sides of the first rows
+        read = rng.integers(0, 4, 120).astype(np.int8)
+        return [(read, read[:n].copy()) for n in (1, 2, 5, 30, 63, 64, 65,
+                                                  100, 127)]
+    if case == "long_indels":       # F and E chains across many lanes
+        x = rng.integers(0, 4, 160).astype(np.int8)
+        return [(np.concatenate([x[:40], x[40 + g:140]]), x) for g in
+                (1, 3, 4, 5, 9, 17, 33, 60)] \
+            + [(np.concatenate([x[:40], rng.integers(0, 4, g).astype(
+                np.int8), x[40:100]]), x[:110]) for g in (1, 4, 7, 18, 40)]
+    if case == "all_n":
+        t = rng.integers(0, 4, 150).astype(np.int8)
+        return [(np.full(100, 4, np.int8), t), (t[:100].copy(),
+                                                np.full(150, 4, np.int8)),
+                (np.full(80, 4, np.int8), np.full(90, 4, np.int8))]
+    if case == "all_zero":          # every live H is 0
+        return [(_rep([0], 100), _rep([1], 120)),
+                (_rep([2, 3], 70), _rep([0, 1], 50)),
+                (_rep([1], 3), _rep([2], 200))]
+    return _tie_pairs(case, rng)
+
+
+PACKED_CASES = DP_CASES + ["later_row_equal", "equal_lanes", "short_windows",
+                           "long_indels", "all_n", "all_zero"]
+
+
+def _sw_scores_packed_rows(ra, rl, ta, tl, *, band, match, mismatch,
+                           gap_open, gap_extend):
+    """The score-only DP as the warp form's packed rows compute it, on the
+    caller's windows (reads (N, q_max) and refs (N, t_max) of codes 0..4,
+    their lengths): slot k of lane k // S, S = band / 32. Returns (3, N).
+
+    A row looks its substitution up in a table of bytes built from the read
+    code, four slots a word through their reference codes, and extracts
+    each slot's signed byte. No cell is tested for being dead: the cells
+    left of the window (sub 0) compute H = E = 0 themselves, those right of
+    it feed only each other and never win. E is kept as E - gap_extend. g
+    and F are taken in the lane's frame (k0 * gap_extend left out), the
+    lane's running maximum p of g and A = max(p + d, Hnod, 0) in one walk,
+    the scan over the lanes moves each total into the receiving lane's
+    frame, then H = max(y + d, A). The best: key 16 * H + 15 - j, the row's
+    largest key replaces the lane's best when its H part is larger. Values
+    are int64 here; none leaves int32's range."""
+    i64 = np.int64
+    n, q_max = ra.shape
+    slots = band // 32
+    half = band // 2
+    go, ge = gap_open, gap_extend
+    for p in range(n):   # the kernel walks exact rows for any other pair
+        assert np.isin(ta[p, :tl[p]], np.arange(5)).all()
+    rlen = np.clip(rl, 0, (q_max + 127) // 128 * 128).astype(i64)
+    tlen = np.clip(tl, 0, ta.shape[1]).astype(i64)
+    j = np.arange(slots, dtype=i64)
+    c = j * ge - go
+    d = (1 - j) * ge
+    k = np.arange(band, dtype=i64)
+    xw = (-mismatch) & 0xFF
+    h = np.zeros((n, 32, slots), i64)
+    ee = np.full((n, 32, slots), -ge, i64)
+    best = np.full((n, 32), 15, i64)
+    best_i = np.zeros((n, 32), i64)
+    rows = np.arange(n)
+    for i in range(int(rlen.max(initial=0))):
+        active = i < rlen
+        rc = ra[:, i].astype(i64) & 0xFF if i < q_max else np.full(n, 4, i64)
+        # the table: bytes 0..3 for the codes 0..3, zero for 4..7
+        tab = np.zeros((n, 8), i64)
+        base = rc < 4
+        tab[:, :4] = np.where((rc == 4)[:, None], 0, xw)
+        tab[rows[base], rc[base]] = match & 0xFF
+        pos = i + k - half
+        inside = (pos >= 0) & (pos < tlen[:, None])
+        code = np.where(inside, ta[rows[:, None], np.clip(pos, 0, ta.shape[1]
+                                                           - 1)], 5)
+        looked_up = tab[rows[:, None], code]
+        words = (looked_up.reshape(n, band // 4, 4)
+                 << (8 * np.arange(4, dtype=i64))).sum(axis=2)
+        sub = ((words[:, :, None] >> (8 * np.arange(4, dtype=i64))) & 0xFF)
+        sub = np.where(sub >= 128, sub - 256, sub).reshape(n, 32, slots)
+
+        flat_h, flat_e = h.reshape(n, band), ee.reshape(n, band)
+        up_h = np.concatenate([flat_h[:, 1:], np.full((n, 1), NEG)], axis=1)
+        up_e = np.concatenate([flat_e[:, 1:], np.full((n, 1), NEG)], axis=1)
+        e_new = np.maximum(up_h - go, up_e).reshape(n, 32, slots)
+        h_nod = np.maximum(h + sub, e_new)
+        ee_new = np.maximum(e_new - ge, -ge)
+        a = np.empty_like(h)
+        p = np.full((n, 32), NEG, i64)
+        for s in range(slots):
+            a[:, :, s] = np.maximum(np.maximum(p + d[s], h_nod[:, :, s]), 0)
+            p = np.maximum(h_nod[:, :, s] + c[s], p)
+        t = p
+        s = 1
+        while s < 32:
+            moved = np.concatenate([t[:, :s], t[:, :-s]], axis=1)
+            t = np.maximum(moved - slots * s * ge, t)
+            s *= 2
+        y = np.concatenate([np.full((n, 1), NEG), t[:, :-1] - slots * ge],
+                           axis=1)
+        h_new = np.maximum(y[:, :, None] + d, a)
+        m = (16 * h_new + 15 - j).max(axis=2)
+        take = active[:, None] & (m > (best | 15))
+        best = np.where(take, m, best)
+        best_i = np.where(take, i, best_i)
+        h = np.where(active[:, None, None], h_new, h)
+        ee = np.where(active[:, None, None], ee_new, ee)
+
+    v = best >> 4
+    kk = np.arange(32, dtype=i64) * slots + 15 - (best & 15)
+    out = np.zeros((3, n), i64)
+    for p in range(n):
+        top = v[p].max()
+        at = np.flatnonzero(v[p] == top)
+        row = best_i[p, at].min()
+        slot = kk[p, at[best_i[p, at] == row]].min()
+        out[:, p] = (top, row, row + slot - half) if top > 0 \
+            else (0, 0, -half)
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("slots", SLOTS)
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_sw_scores_packed_rows_equal_reference(case, slots):
+    band = 32 * slots
+    rng = np.random.default_rng(600 * slots + PACKED_CASES.index(case))
+    arrays = _batch(_packed_row_pairs(case, rng))
+    got = _sw_scores_packed_rows(*arrays, band=band, **PARAMS)
+    prepared = sw._prepare(*(torch.from_numpy(x) for x in arrays), band)
+    ref = sw.banded_sw_scores_torch(*prepared, band=band, **PARAMS)
+    np.testing.assert_array_equal(got, ref.numpy())
+    jax_ref = np.stack([np.asarray(x) for x in jax_sw_scores(
+        *arrays, band=band, batch_tile=8, backend="jnp", **PARAMS)])
+    np.testing.assert_array_equal(got, jax_ref)
+
+
+@pytest.mark.parametrize("slots", SLOTS)
+@pytest.mark.parametrize("params", [
+    dict(match=4, mismatch=6, gap_open=8, gap_extend=2),
+    dict(match=1, mismatch=1, gap_open=1, gap_extend=1),
+    dict(match=3, mismatch=5, gap_open=0, gap_extend=0)],
+    ids=["4-6-8-2", "1-1-1-1", "3-5-0-0"])
+def test_sw_scores_packed_rows_other_scoring(params, slots):
+    """Other scorings the packed rows take: the native realignment's, ties
+    among diagonal, E and F, and gap penalties of 0 (a dead cell's F then
+    reaches the live cells at 0 itself)."""
+    band = 32 * slots
+    rng = np.random.default_rng(700 + slots)
+    pairs = []
+    for case in PACKED_CASES:
+        pairs += _packed_row_pairs(case, rng)
+    arrays = _batch(pairs)
+    got = _sw_scores_packed_rows(*arrays, band=band, **params)
+    prepared = sw._prepare(*(torch.from_numpy(x) for x in arrays), band)
+    ref = sw.banded_sw_scores_torch(*prepared, band=band, **params)
+    np.testing.assert_array_equal(got, ref.numpy())
