@@ -11,13 +11,11 @@ a static cap overflows, only the cut-off read-id suffix re-runs through the
 host-seeded dispatch (`_fused_map_dispatch`), the partial redo.
 
 The host-chained branch (`emit_cigars=True`, and every PAF problem outside
-the fused gate): anchors are collected on the host, chained on the device
-in 4096-group chunks, and the top-K candidates per read are extended on the
-device: with full statistics (`_extend_full_dispatch`) in PAF mode when the
-windows stay below 2**15, else score only (`banded_sw_scores`), after which
-the kept alignments are traced back by the native banded aligner, whose
-score is cross-checked against the device score. Base-level CIGARs land in
-`AlignList.cigar_map`.
+the fused gate, `MinimizerAligner._map_host`) runs as stages over one
+columnar `WindowTable`: host seeding, chain kernel in 4096-group chunks,
+top-K windows, device extension (full statistics in PAF mode below 2**15,
+else score only), multi-locus selection, native traceback cross-checked
+against the device score, and emit (CIGARs in `AlignList.cigar_map`).
 
 The device functions take and return torch tensors on one device; the
 kernels (chain DP, banded extension) run as CUDA kernels on a CUDA device and
@@ -35,7 +33,7 @@ from __future__ import annotations
 import contextvars
 import logging
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
@@ -311,7 +309,7 @@ def _count_windows(qlens, wlens, rows, q_max, t_max):
     the bytes of the padded (rows, q_max) and (rows, t_max) windows the
     device scores."""
     count("windows", len(qlens))
-    count("window_bytes", sum(qlens) + sum(wlens))
+    count("window_bytes", qlens.sum() + wlens.sum())
     count("window_bytes_padded", rows * (q_max + t_max))
 
 
@@ -667,6 +665,89 @@ def _round256(x):
     return max(-(-x // 256), 1) * 256
 
 
+@dataclass
+class WindowTable:
+    """The host path's extension windows as int64 columns, one row a window,
+    by read and by falling chain score: the oriented read's query [qs, qe),
+    the reference window from w_lo in its sequence (t_start in the
+    concatenated reference, t_len long), and the chain's un-padded extents
+    [cq_lo, cq_hi) and [ct_lo, ct_hi), which select_alignments reads."""
+
+    rid: np.ndarray
+    seq_id: np.ndarray
+    strand: np.ndarray
+    qlen: np.ndarray
+    qs: np.ndarray
+    qe: np.ndarray
+    w_lo: np.ndarray
+    cq_lo: np.ndarray
+    cq_hi: np.ndarray
+    ct_lo: np.ndarray
+    ct_hi: np.ndarray
+    t_start: np.ndarray
+    t_len: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.rid)
+
+    @property
+    def q_len(self) -> np.ndarray:
+        return self.qe - self.qs
+
+    def take(self, i) -> WindowTable:
+        return WindowTable(*(getattr(self, f.name)[i] for f in fields(self)))
+
+
+def _window_table(groups, chain, t_base, qlens, seq_offsets, seq_lengths, *,
+                  k: int, p: AlignParams) -> WindowTable:
+    """The windows of each read's first max_alignments_per_read groups by
+    chain score (ties in group order) among those reaching min_chain_score,
+    from the chain outputs (score, q_min, q_max, t_min, t_max): each cut
+    around its chain so that the diagonal starts near (0, 0), padded by
+    window_pad, clamped to read and sequence. The back-shift reads p.band,
+    0 under the auto band, as in the reference (`_fused_tail` reads the
+    slice's band)."""
+    chain = chain.astype(np.int64)
+    g = np.flatnonzero(chain[0] >= p.min_chain_score)
+    g = g[np.lexsort((-chain[0, g], groups.group_read[g]))]
+    rid = groups.group_read[g].astype(np.int64)
+    # rank: position minus the start of the read's run (rid is sorted)
+    top = np.arange(len(g)) - np.searchsorted(rid, rid) \
+        < p.max_alignments_per_read
+    g, rid = g[top], rid[top]
+    seq_id = groups.group_seq[g].astype(np.int64)
+    qlen = qlens[rid]
+    seq_len = seq_lengths[seq_id]
+    q_lo = chain[1, g] - (k - 1)
+    q_hi = chain[2, g] + 1
+    t_lo = chain[3, g] + t_base[g] - (k - 1)
+    t_hi = chain[4, g] + t_base[g] + 1
+    band = p.band if p.band is not None else 0
+    dshift = min(band // 8, 64) if band > 128 else 0
+    left = np.minimum(q_lo, t_lo) + p.window_pad
+    right = np.minimum(qlen - q_hi, seq_len - t_hi) + p.window_pad
+    qs = np.maximum(q_lo - left, 0)
+    qe = np.minimum(q_hi + right, qlen)
+    w_lo = np.maximum(t_lo - (q_lo - qs) - dshift, 0)
+    w_hi = np.minimum(t_hi + (qe - q_hi) + dshift, seq_len)
+    return WindowTable(
+        rid, seq_id, groups.group_strand[g].astype(np.int64), qlen, qs, qe,
+        w_lo, np.maximum(q_lo, 0), np.minimum(q_hi, qlen),
+        np.maximum(t_lo, 0), np.minimum(t_hi, seq_len),
+        seq_offsets[seq_id] + w_lo, w_hi - w_lo)
+
+
+def _oriented_reads(reads, qlens, win: WindowTable):
+    """The reads and their concatenation reverse-complemented once (each
+    read's reverse complement, in reverse order) in one int8 buffer, and
+    each window's query start in it."""
+    off = (np.cumsum(qlens) - qlens)[win.rid]
+    fwd = np.concatenate(reads).astype(np.int8, copy=False)
+    n = len(fwd)
+    q0 = np.where(win.strand == 0, off, 2 * n - off - win.qlen) + win.qs
+    return np.concatenate([fwd, revcomp(fwd)]), q0
+
+
 def require_device(device, owner: str) -> None:
     """Raise if `device` names a CUDA device and none is available: an
     entry point never falls back to the CPU on its own."""
@@ -1005,13 +1086,6 @@ class MinimizerAligner:
                 and len(self.index.seq_names) < 2 ** 16
                 and self.index.seq_data.size < 2 ** 31 - 2 ** 16)
 
-    def _target_window(self, seq_id: int, start: int, end: int) -> np.ndarray:
-        off = self.index.seq_offsets
-        s0, s1 = int(off[seq_id]), int(off[seq_id + 1])
-        start = max(s0 + start, s0)
-        end = min(s0 + end, s1)
-        return self.index.seq_data[start:end]
-
     def map_reads(self, reads: list[np.ndarray],
                   read_names: list[str] | None = None,
                   slice_size: int | None = None,
@@ -1036,8 +1110,7 @@ class MinimizerAligner:
             if slice_size and len(reads) > slice_size:
                 return self._map_reads_pipelined(reads, read_names,
                                                  slice_size, emit_cigars)
-            return self._map_reads_single(reads, read_names,
-                                          emit_cigars=emit_cigars)
+            return self._map_slice(reads, read_names, 0, emit_cigars)
 
     def _map_reads_pipelined(self, reads, read_names, slice_size,
                              emit_cigars=True):
@@ -1049,9 +1122,8 @@ class MinimizerAligner:
             # its spans are children of this call's
             with ThreadPoolExecutor(max_workers=2) as ex:
                 futs = [ex.submit(contextvars.copy_context().run,
-                                  self._map_reads_single,
-                                  reads[s: s + slice_size], None, id_base=s,
-                                  emit_cigars=emit_cigars)
+                                  self._map_slice, reads[s: s + slice_size],
+                                  None, s, emit_cigars)
                         for s in range(0, len(reads), slice_size)]
                 parts = [f.result() for f in futs]
         return self._concat_parts(parts, read_names, emit_cigars)
@@ -1119,316 +1191,242 @@ class MinimizerAligner:
                                                     None))
         return parts
 
-    def _map_reads_single(self, reads: list[np.ndarray],
-                          read_names: list[str] | None = None,
-                          id_base: int = 0,
-                          emit_cigars: bool = True) -> AlignList:
+    def _map_slice(self, reads, read_names, id_base, emit_cigars):
+        """One slice under its span: the fused gate sends it to
+        `_finish_fused`, anything else to the host path."""
         with span("map.slice"):
             count("reads", len(reads))
-            return self._map_slice(reads, read_names, id_base, emit_cigars)
+            read_max = _bucket(max(len(r) for r in reads))
+            if not emit_cigars and self._fused_ok(read_max, len(reads)):
+                return self._finish_fused(reads, read_names, id_base,
+                                          read_max)
+            return self._map_host(reads, read_names, id_base, emit_cigars,
+                                  read_max)
 
-    def _map_slice(self, reads, read_names, id_base, emit_cigars):
-        p = self.params
-        idx = self.index
-        n_seqs = len(idx.seq_names)
-        seq_lens = idx.seq_lengths
-
-        # PAF mode on in-range problems: the whole map step (chain, top-K,
-        # windows, extension) is one fused device dispatch
-        read_max = _bucket(max(len(r) for r in reads))
-        if not emit_cigars and self._fused_ok(read_max, len(reads)):
-            return self._finish_fused(reads, read_names, id_base, read_max)
+    def _map_host(self, reads, read_names, id_base, emit_cigars, read_max):
+        """The host-chained path: seed, chain, windows, extend, select,
+        traceback (score-only branch), emit; each stage under its span."""
         count("host_path", 1)
         count("long_reads", sum(not self._fits_fused(_bucket(len(r)))
                                 for r in reads))
-
-        empty = AlignList.empty(idx.seq_names, self.meta.assembly_names,
-                                read_names or [])
+        empty = AlignList.empty(self.index.seq_names,
+                                self.meta.assembly_names, read_names or [])
         groups = self._seed(reads)
         if groups.n_groups == 0:
             return empty
+        chain, t_base = self._chain(groups)
+        with span("map.windows"):
+            qlens = np.array([len(r) for r in reads], np.int64)
+            win = _window_table(groups, chain, t_base, qlens,
+                                self.index.seq_offsets, self.index.seq_lengths,
+                                k=self.index.k, p=self.params)
+            if len(win) == 0:
+                return empty
+            # shapes bucketed to powers of two as in the reference; the
+            # full-stats kernel (PAF mode) needs windows < 2**15 for its
+            # packed companions, beyond that the host traces back
+            q_max = _bucket(int(win.q_len.max()))
+            t_max = _bucket(max(int(win.t_len.max()), q_max))
+            band = self._band_for(q_max)
+            full_ok = (not emit_cigars and q_max + band < 2 ** 15
+                       and max(t_max, q_max) + band < 2 ** 15)
+            if not full_ok:
+                qbuf, q0 = _oriented_reads(reads, qlens, win)
+        if full_ok:
+            full = self._extend_full(reads, qlens, read_max, win, q_max,
+                                     t_max, band)
+            scores = full[:, F_SCORE]
+        else:
+            scores = self._extend_scores(win, qbuf, q0, band)
+        kept, mapq = self._select(win, scores)
+        if len(kept) == 0:
+            return empty
+        win = win.take(kept)
+        if full_ok:
+            stats, cigars = full[kept], None
+        else:
+            stats, cigars = self._traceback(win, qbuf, q0[kept],
+                                            scores[kept], band)
+        return self._emit(win, stats, mapq, cigars if emit_cigars else None,
+                          id_base, read_names)
 
+    def _chain(self, groups):
+        """map.chain, then map.fetch: the groups, padded once to 4096-row
+        chunks, a launch a chunk; one fetch. Returns the (5, n_groups) chain
+        outputs and each group's t_base."""
+        CHUNK = 4096
         with span("map.chain"):
-            # bucket the anchor dimension: the smallest power of two
-            # covering the largest group (capped); typical reads need 32-64
-            sizes = np.diff(groups.group_offsets)
-            a_bucket = 32
-            while a_bucket < min(int(sizes.max()), p.max_anchors_per_group):
-                a_bucket *= 2
+            # anchors: the power of two from 32 covering the largest group
+            a_bucket = _bucket(min(int(np.diff(groups.group_offsets).max()),
+                                   self.params.max_anchors_per_group), lo=32)
             qg, tg, cnt, t_base, _sel = pack_groups(groups,
                                                     max_anchors=a_bucket)
-
-            # chain in fixed-size chunks; all chunk outputs are concatenated
-            # on the device and fetched in one transfer
             ng = len(cnt)
-            CHUNK = 4096
+            rows = ((0, -ng % CHUNK), (0, 0))
+            qg, tg, cnt = (np.pad(x, rows[:x.ndim]) for x in (qg, tg, cnt))
             up = self._upload
-            chunk_outs = []
-            for c0 in range(0, ng, CHUNK):
-                c1 = min(c0 + CHUNK, ng)
-                m = c1 - c0
-                qg_c = np.zeros((CHUNK, qg.shape[1]), qg.dtype)
-                tg_c = np.zeros((CHUNK, tg.shape[1]), tg.dtype)
-                cnt_c = np.zeros(CHUNK, np.int32)
-                qg_c[:m] = qg[c0:c1]
-                tg_c[:m] = tg[c0:c1]
-                cnt_c[:m] = cnt[c0:c1]
-                chunk_outs.append(chain_and_extents(up(qg_c), up(tg_c),
-                                                    up(cnt_c)))
+            outs = [chain_and_extents(up(qg[c: c + CHUNK]),
+                                      up(tg[c: c + CHUNK]),
+                                      up(cnt[c: c + CHUNK]))
+                    for c in range(0, ng, CHUNK)]
         with span("map.fetch"):
-            stacked = torch.cat(chunk_outs, dim=1).cpu().numpy()[:, :ng]
-        best = stacked[0].astype(np.int64)
-        q_min, q_max_, t_min, t_max_ = stacked[1:5]
+            return torch.cat(outs, dim=1).cpu().numpy()[:, :ng], t_base
 
-        with span("map.windows"):
-            keep = best >= p.min_chain_score
-            g_ids = np.flatnonzero(keep)
-            if len(g_ids) == 0:
-                return empty
+    def _extend_full(self, reads, qlens, read_max, win, q_max, t_max, band):
+        """map.extend, then map.fetch, PAF mode: one full-stats dispatch,
+        which gathers the windows on the device. Returns (n, 7) rows in
+        banded_sw_full's column order (F_SCORE .. F_BEGIN_J)."""
+        p = self.params
+        n = len(win)
+        mp = -(-n // 1024) * 1024
+        up = self._upload
+        with span("map.extend"):
+            _count_windows(win.q_len, win.t_len, mp, q_max, t_max)
+            packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max)
+            meta = np.zeros((6, mp), np.int32)
+            meta[:, :n] = (win.rid, win.qs, win.q_len, win.strand,
+                           win.t_start, win.t_len)
+            full = _extend_full_dispatch(
+                up(packed2), up(exc_rid), up(exc_pos),
+                up(qlens.astype(np.int32)), up(meta),
+                self._device_refs(), q_max=q_max, t_max=t_max, band=band,
+                match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
+                gap_extend=p.gap_extend)
+        with span("map.fetch"):
+            return full[:n].cpu().numpy().astype(np.int64)
 
-            # top-K candidate groups per read by chain score
-            order = np.lexsort((-best[g_ids], groups.group_read[g_ids]))
-            g_sorted = g_ids[order]
-            rids = groups.group_read[g_sorted]
-            rank = np.zeros(len(g_sorted), np.int64)
-            same = np.flatnonzero(np.append(False, rids[1:] == rids[:-1]))
-            for s in same:  # cumulative rank within read runs
-                rank[s] = rank[s - 1] + 1
-            g_final = g_sorted[rank < p.max_alignments_per_read]
+    def _extend_scores(self, win, qbuf, q0, band):
+        """map.extend, then map.fetch, score only. A launch lasts as long as
+        its longest window (a warp a pair, all resident at once), so the
+        windows go out longest first, extend_batch a launch, each launch
+        padded to its own longest query and ref. Returns the scores."""
+        p = self.params
+        ql, t0, tl = win.q_len, win.t_start, win.t_len
+        refs = self.index.seq_data
+        up = self._upload
+        with span("map.extend"):
+            order = np.argsort(-ql, kind="stable")
+            parts = []
+            for s0 in range(0, len(win), p.extend_batch):
+                part = order[s0: s0 + p.extend_batch]
+                m = len(part)
+                q_top = int(ql[part[0]])
+                q_l = _round256(q_top)
+                t_l = max(_round256(int(tl[part].max())), q_l)
+                ra = np.full((m, q_l), 4, np.int8)
+                ta = np.full((m, t_l), 5, np.int8)
+                for row, (a, n, b, L) in enumerate(zip(
+                        q0[part].tolist(), ql[part].tolist(),
+                        t0[part].tolist(), tl[part].tolist())):
+                    ra[row, :n] = qbuf[a: a + n]
+                    ta[row, :L] = refs[b: b + L]
+                sc, _, _ = banded_sw_scores(
+                    up(ra), up(ql[part].astype(np.int32)), up(ta),
+                    up(tl[part].astype(np.int32)), band=band,
+                    match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
+                    gap_extend=p.gap_extend)
+                parts.append(sc)
+                _count_windows(ql[part], tl[part], m, q_l, t_l)
+                count("ext_rows_launched", m * q_top)
+            count("ext_rows", ql.sum())
+        with span("map.fetch"):
+            scores = np.empty(len(win), np.int64)
+            scores[order] = torch.cat(parts).cpu().numpy()
+            return scores
 
-            # extension windows from device-computed chain extents
-            recs = []
-            ext_qlens, ext_starts, ext_wlens = [], [], []
-            for g in g_final:
-                rid = int(groups.group_read[g])
-                seq_id = int(groups.group_seq[g])
-                strand = int(groups.group_strand[g])
-                qlen = len(reads[rid])
-                q_lo = int(q_min[g]) - (idx.k - 1)
-                q_hi = int(q_max_[g]) + 1
-                t_lo = int(t_min[g]) + int(t_base[g]) - (idx.k - 1)
-                t_hi = int(t_max_[g]) + int(t_base[g]) + 1
-                # extension problem: slice BOTH query and target around the
-                # chain so the alignment diagonal starts at ~(0, 0), as the
-                # diagonal-banded kernel requires; correct for partial
-                # matches (e.g. a long query containing a short gene
-                # mid-way). Diagonal back-shift for widened bands (see
-                # _fused_tail).
-                wband = p.band if p.band is not None else 0
-                wpad = p.window_pad
-                dshift = min(wband // 8, 64) if wband > 128 else 0
-                seq_off = int(idx.seq_offsets[seq_id])
-                seq_len = int(seq_lens[seq_id])
-                left = min(q_lo, t_lo) + wpad
-                right = min(qlen - q_hi, seq_len - t_hi) + wpad
-                qs = max(q_lo - left, 0)
-                qe = min(q_hi + right, qlen)
-                w_lo = max(t_lo - (q_lo - qs) - dshift, 0)
-                w_hi = min(t_hi + (qe - q_hi) + dshift, seq_len)
-                recs.append(dict(
-                    rid=rid, seq_id=seq_id, strand=strand, qlen=qlen,
-                    w_lo=w_lo, w_hi=w_hi, qs=qs, qe=qe,
-                    chain_score=int(best[g]),
-                    # un-padded chain extents (oriented q frame / absolute
-                    # t): the coordinates minimap2 uses for primary /
-                    # secondary marking (mm_set_parent runs on chains,
-                    # before base-level extension)
-                    cq_lo=max(q_lo, 0), cq_hi=min(q_hi, qlen),
-                    ct_lo=max(t_lo, 0), ct_hi=min(t_hi, seq_len)))
-                ext_qlens.append(qe - qs)
-                ext_starts.append(seq_off + w_lo)
-                ext_wlens.append(w_hi - w_lo)
-
-            # batched banded extension on the device, window shapes
-            # bucketed to powers of two as in the reference
-            n_ext = len(recs)
-            q_max = _bucket(max(ext_qlens))
-            t_max = _bucket(max(max(ext_wlens), q_max))
-            band = self._band_for(q_max)
-            # the full-stats kernel (PAF mode) needs windows < 32k for its
-            # packed companions; beyond that, score on the device and trace
-            # back on the host
-            full_ok = (not emit_cigars) and q_max + band < 2 ** 15 \
-                and max(t_max, q_max) + band < 2 ** 15
-            sw_kw = dict(band=band, match=p.match, mismatch=p.mismatch,
-                         gap_open=p.gap_open, gap_extend=p.gap_extend)
-            if not full_ok:
-                ext_reads = [
-                    (reads[r["rid"]] if r["strand"] == 0
-                     else revcomp(reads[r["rid"]]))[r["qs"]: r["qe"]]
-                    for r in recs]
-                ext_refs = [idx.seq_data[s: s + L]
-                            for s, L in zip(ext_starts, ext_wlens)]
-
-        if full_ok:
-            with span("map.extend"):
-                # single extension dispatch: the packed read batch is
-                # uploaded once; query windows (with strand flip) and
-                # target windows are both gathered on the device, each
-                # padded to (mp, q_max) and (mp, t_max)
-                mp = ((n_ext + 1023) // 1024) * 1024
-                _count_windows(ext_qlens, ext_wlens, mp, q_max, t_max)
-                packed2, exc_rid, exc_pos = _pack_reads2(reads, read_max)
-                meta_a = np.zeros((6, mp), np.int32)
-                meta_a[0, :n_ext] = [r["rid"] for r in recs]
-                meta_a[1, :n_ext] = [r["qs"] for r in recs]
-                meta_a[2, :n_ext] = ext_qlens
-                meta_a[3, :n_ext] = [r["strand"] for r in recs]
-                meta_a[4, :n_ext] = ext_starts
-                meta_a[5, :n_ext] = ext_wlens
-                qlens_a = np.array([len(r) for r in reads], np.int32)
-                full_dev = _extend_full_dispatch(
-                    up(packed2), up(exc_rid), up(exc_pos), up(qlens_a),
-                    up(meta_a), self._device_refs(), q_max=q_max,
-                    t_max=t_max, **sw_kw)
-            with span("map.fetch"):
-                full = full_dev[:n_ext].cpu().numpy().astype(np.int64)
-            scores = full[:, 0]
-        else:
-            with span("map.extend"):
-                # a launch lasts as long as its longest window (a warp a
-                # pair, all resident at once): the windows go out longest
-                # first, in launches of extend_batch pairs, each padded to
-                # its own longest query and ref (256 multiples); the band
-                # stays the slice's
-                order = np.argsort(-np.asarray(ext_qlens), kind="stable")
-                score_parts = []
-                for s0 in range(0, n_ext, p.extend_batch):
-                    part = order[s0: s0 + p.extend_batch]
-                    m = len(part)
-                    q_top = ext_qlens[part[0]]
-                    w_top = max(ext_wlens[i] for i in part)
-                    q_l = _round256(q_top)
-                    t_l = max(_round256(w_top), q_l)
-                    ra = np.full((m, q_l), 4, np.int8)
-                    ta = np.full((m, t_l), 5, np.int8)
-                    rl = np.zeros(m, np.int32)
-                    tl = np.zeros(m, np.int32)
-                    for row, i in enumerate(part):
-                        rr, tt = ext_reads[i], ext_refs[i]
-                        ra[row, : len(rr)] = rr
-                        ta[row, : len(tt)] = tt
-                        rl[row] = len(rr)
-                        tl[row] = len(tt)
-                    sc, _, _ = banded_sw_scores(up(ra), up(rl), up(ta),
-                                                up(tl), **sw_kw)
-                    score_parts.append(sc)
-                    _count_windows([ext_qlens[i] for i in part],
-                                   [ext_wlens[i] for i in part], m, q_l, t_l)
-                    count("ext_rows_launched", m * q_top)
-                count("ext_rows", sum(ext_qlens))
-            with span("map.fetch"):
-                # one device->host transfer for all extension scores, put
-                # back in window order
-                scores = np.empty(n_ext, np.int64)
-                scores[order] = torch.cat(score_parts).cpu().numpy()
-
+    def _select(self, win, scores):
+        """map.select: minimap2-style multi-locus selection (-N / -p) of the
+        windows above min_alignment_score. Returns kept indices, mapq."""
+        p = self.params
         with span("map.select"):
-            # minimap2-style multi-locus selection (-N/-p semantics) on the
-            # un-padded chain extents + device extension scores; exact emit
-            # (begin/end/CIGAR) then runs only on the kept set
             ok = np.flatnonzero(scores > p.min_alignment_score)
-            if len(ok) == 0:
-                return empty
-            rid_c = np.array([recs[i]["rid"] for i in ok], np.int64)
-            seq_c = np.array([recs[i]["seq_id"] for i in ok], np.int64)
-            strand_c = np.array([recs[i]["strand"] for i in ok], np.int64)
-            qlen_c = np.array([recs[i]["qlen"] for i in ok], np.int64)
-            cq_lo = np.array([recs[i]["cq_lo"] for i in ok], np.int64)
-            cq_hi = np.array([recs[i]["cq_hi"] for i in ok], np.int64)
-            qf_c = np.where(strand_c == 0, cq_lo, qlen_c - cq_hi)
-            qt_c = np.where(strand_c == 0, cq_hi, qlen_c - cq_lo)
-            tf_c = np.array([recs[i]["ct_lo"] for i in ok], np.int64)
-            tt_c = np.array([recs[i]["ct_hi"] for i in ok], np.int64)
-            sel, mapq_sel, _is_sec = select_alignments(
-                rid_c, scores[ok], qf_c, qt_c, seq_c, strand_c, tf_c, tt_c,
-                secondary_ratio=p.secondary_ratio, mask_level=p.mask_level,
+            w = win.take(ok)
+            plus = w.strand == 0
+            sel, mapq, _is_sec = select_alignments(
+                w.rid, scores[ok], np.where(plus, w.cq_lo, w.qlen - w.cq_hi),
+                np.where(plus, w.cq_hi, w.qlen - w.cq_lo), w.seq_id, w.strand,
+                w.ct_lo, w.ct_hi, secondary_ratio=p.secondary_ratio,
+                mask_level=p.mask_level,
                 max_secondary=p.max_alignments_per_read)
-            emit_idx = [int(i) for i in ok[sel]]
+            return ok[sel], mapq
 
-        if not full_ok:
-            with span("map.traceback"):
-                # exact emit (begin/end/CIGAR/match/NM) via the native
-                # threaded banded aligner, O(band*len) per kept alignment:
-                # narrow band first (2x cheaper); any pair whose score
-                # misses the device banded score is redone at the full
-                # band, so the cross-check guarantees exactness and the
-                # common case the speed
-                emit_band = max(64, band // 2)
-                emit_alns = banded_align_batch(
-                    [ext_reads[i] for i in emit_idx],
-                    [ext_refs[i] for i in emit_idx],
-                    band=emit_band, match=p.match, mismatch=p.mismatch,
-                    gap_open=p.gap_open, gap_extend=p.gap_extend)
-                redo = [r for r, i in enumerate(emit_idx)
-                        if emit_alns[r].score != scores[i]]
-                if redo:
-                    fixed = banded_align_batch(
-                        [ext_reads[emit_idx[r]] for r in redo],
-                        [ext_refs[emit_idx[r]] for r in redo],
-                        band=band, match=p.match, mismatch=p.mismatch,
-                        gap_open=p.gap_open, gap_extend=p.gap_extend)
-                    for r, a in zip(redo, fixed):
-                        emit_alns[r] = a
-                count("traceback_pairs", len(emit_idx))
-                count("traceback_redo", len(redo))
+    def _traceback(self, win, qbuf, q0, scores, band):
+        """map.traceback by the native banded aligner, at half the band first
+        (2x cheaper); a pair whose score misses the device's is redone at the
+        full band, so the result is exact. Returns (n, 7) rows in
+        banded_sw_full's column order, and the CIGARs."""
+        p = self.params
+        refs = self.index.seq_data
+        kw = dict(match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
+                  gap_extend=p.gap_extend)
+        with span("map.traceback"):
+            qw = [qbuf[a: a + n]
+                  for a, n in zip(q0.tolist(), win.q_len.tolist())]
+            tw = [refs[b: b + L]
+                  for b, L in zip(win.t_start.tolist(), win.t_len.tolist())]
+            alns = banded_align_batch(qw, tw, band=max(64, band // 2), **kw)
+            redo = [r for r, a in enumerate(alns) if a.score != scores[r]]
+            if redo:
+                fixed = banded_align_batch([qw[r] for r in redo],
+                                           [tw[r] for r in redo], band=band,
+                                           **kw)
+                for r, a in zip(redo, fixed):
+                    alns[r] = a
+            count("traceback_pairs", len(alns))
+            count("traceback_redo", len(redo))
+            stats = np.array([(a.score, a.read_end, a.ref_end, a.n_match,
+                               a.edit_dist, a.read_begin, a.ref_begin)
+                              for a in alns], np.int64)
+            return stats, [a.cigar for a in alns]
 
+    def _emit(self, win, stats, mapq, cigars, id_base, read_names):
+        """map.emit: the kept windows' AlignList, sorted by (read, sequence,
+        position). With cigars, every locus is addressable in cigar_map by
+        (rid, sid, seq_from); the first strictly best locus of a (rid, sid)
+        also owns the 2-key that variant/ and amr/consensus read."""
+        meta = self.meta
+        sid = win.seq_id
         with span("map.emit"):
-            if full_ok:
-                # PAF mode: every field comes from the device kernel's
-                # carried path statistics; no host DP, no CIGARs
-                stats = [(int(full[i, 5]), int(full[i, 1]), int(full[i, 6]),
-                          int(full[i, 2]), int(full[i, 3]), int(full[i, 4]),
-                          int(full[i, 0])) for i in emit_idx]
-            else:
-                stats = [(a.read_begin, a.read_end, a.ref_begin, a.ref_end,
-                          a.n_match, a.edit_dist, int(a.score))
-                         for a in emit_alns]
-
-            out = np.zeros(len(emit_idx), ALIGN_DTYPE)
-            cigar_map: dict | None = {} if emit_cigars else None
-            best_for_pair: dict[tuple, int] = {}  # (rid, sid) -> best score
-            for row, (i, st) in enumerate(zip(emit_idx, stats)):
-                rb, re_, tb, te, n_match, edit_dist, score = st
-                r = recs[i]
-                rid = r["rid"]
-                seq_id = r["seq_id"]
-                qlen = r["qlen"]
-                ob = r["qs"] + rb                 # oriented-frame begin/end
-                oe = r["qs"] + re_
-                if r["strand"] == 0:
-                    read_from, read_to = ob, oe + 1
-                else:  # flip back to original read coordinates
-                    read_from = qlen - (oe + 1)
-                    read_to = qlen - ob
-                seq_from = r["w_lo"] + tb
-                seq_to = r["w_lo"] + te + 1
-                out[row] = (
-                    rid + id_base, qlen, read_from, read_to, r["strand"],
-                    seq_id, int(seq_lens[seq_id]), seq_from, seq_to, n_match,
-                    int(mapq_sel[row]), edit_dist, score,
-                    int(self.meta.assembly_idx[seq_id]),
-                    int(self.meta.tax_id[seq_id]),
-                    int(self.meta.species_tax_id[seq_id]),
-                    int(self.meta.genus_tax_id[seq_id]),
-                    0.0,
-                )
-                if cigar_map is not None:
-                    entry = (emit_alns[row].cigar, r["qs"] + rb, r["strand"])
-                    # every locus is addressable by (rid, sid, seq_from);
-                    # the best locus per (rid, sid) also owns the 2-key used
-                    # by per-(read, seq) consumers (variant/, amr/consensus)
-                    cigar_map[(rid + id_base, seq_id, seq_from)] = entry
-                    pk = (rid + id_base, seq_id)
-                    if score > best_for_pair.get(pk, -1):
-                        best_for_pair[pk] = score
-                        cigar_map[pk] = entry
+            ob = win.qs + stats[:, F_BEGIN_I]      # oriented-frame begin/end
+            oe = win.qs + stats[:, F_END_I]
+            plus = win.strand == 0
+            out = np.zeros(len(win), ALIGN_DTYPE)
+            out["read_id"] = win.rid + id_base
+            out["read_length"] = win.qlen
+            out["read_from"] = np.where(plus, ob, win.qlen - (oe + 1))
+            out["read_to"] = np.where(plus, oe + 1, win.qlen - ob)
+            out["strand"] = win.strand
+            out["sequence_id"] = sid
+            out["sequence_length"] = self.index.seq_lengths[sid]
+            out["sequence_from"] = win.w_lo + stats[:, F_BEGIN_J]
+            out["sequence_to"] = win.w_lo + stats[:, F_END_J] + 1
+            out["match"] = stats[:, F_MATCH]
+            out["mapq"] = mapq
+            out["edit_dist"] = stats[:, F_EDIT]
+            out["alignment_score"] = stats[:, F_SCORE]
+            out["assembly_id"] = meta.assembly_idx[sid]
+            out["tax_id"] = meta.tax_id[sid]
+            out["species_tax_id"] = meta.species_tax_id[sid]
+            out["genus_tax_id"] = meta.genus_tax_id[sid]
             out["alignment_score_tiebreaker"] = _stable_uniform(
-                p.tiebreaker_seed, out["read_id"],
-                out["sequence_id"].astype(np.int64) * np.int64(n_seqs + 1)
+                self.params.tiebreaker_seed, out["read_id"],
+                out["sequence_id"].astype(np.int64)
+                * np.int64(len(self.index.seq_names) + 1)
                 + out["sequence_from"])
+            cigar_map: dict | None = None
+            if cigars is not None:
+                cigar_map, best = {}, {}
+                for rid, s, sf, score, entry in zip(
+                        out["read_id"].tolist(), sid.tolist(),
+                        out["sequence_from"].tolist(),
+                        out["alignment_score"].tolist(),
+                        zip(cigars, ob.tolist(), win.strand.tolist())):
+                    cigar_map[(rid, s, sf)] = entry
+                    if score > best.get((rid, s), -1):
+                        best[(rid, s)] = score
+                        cigar_map[(rid, s)] = entry
             order = np.lexsort((out["sequence_from"], out["sequence_id"],
                                 out["read_id"]))
-            return AlignList(out[order], list(idx.seq_names),
-                             list(self.meta.assembly_names), read_names or [],
+            return AlignList(out[order], list(self.index.seq_names),
+                             list(meta.assembly_names), read_names or [],
                              cigar_map)

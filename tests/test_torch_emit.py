@@ -65,6 +65,37 @@ def _chimeric_world():
     return [g0, g1], [np.concatenate(parts), revcomp(np.concatenate(parts))]
 
 
+def _clipped_world():
+    """Reads across both ends of short genomes, with other bases beyond
+    the ends: the windows clamp at the read's and the sequence's ends
+    (qs, w_lo, w_hi)."""
+    rng = np.random.default_rng(21)
+    genomes = [random_sequence(rng, n) for n in (1500, 2500, 4000)]
+
+    def err(x):
+        return mutate(rng, x, sub_rate=0.02, ins_rate=0.01, del_rate=0.01)
+    reads = []
+    for g in genomes:
+        for read in (np.concatenate([random_sequence(rng, 300), err(g[:900])]),
+                     err(g[:700]),
+                     np.concatenate([err(g[-900:]), random_sequence(rng, 300)]),
+                     np.concatenate([random_sequence(rng, 200), err(g),
+                                     random_sequence(rng, 200)])):
+            reads += [read, revcomp(read)]
+    return genomes, reads
+
+
+def _tied_world():
+    """Three identical genomes under three names: every read chains to
+    three loci of equal score, so the rank's tie order (group order)
+    decides which two are kept."""
+    rng = np.random.default_rng(27)
+    genome = random_sequence(rng, 6000)
+    reads = [mutate(rng, genome[s: s + 800], sub_rate=0.02, ins_rate=0.01,
+                    del_rate=0.01) for s in (100, 2000, 4500)]
+    return [genome, genome.copy(), genome.copy()], reads + [revcomp(reads[1])]
+
+
 def _random_reads_world():
     rng = np.random.default_rng(3)
     genomes = [random_sequence(rng, 10000) for _ in range(2)]
@@ -100,6 +131,9 @@ CASES = {
         lambda: _simulated(19, 2, 8000, 8, 400, 0.05),
         {"min_alignment_score": 10 ** 6}, {}),
     "random_reads_empty": (_random_reads_world, {}, {}),
+    "top_k_cut": (_repeat_world, {"max_alignments_per_read": 1}, {}),
+    "window_clipped_at_sequence_ends": (_clipped_world, {}, {}),
+    "chain_score_ties": (_tied_world, {"max_alignments_per_read": 2}, {}),
 }
 
 
